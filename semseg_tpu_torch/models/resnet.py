@@ -1,0 +1,118 @@
+"""Deep-stem dilated ResNet encoder (``semseg_tpu/models/resnet.py``), NCHW.
+
+* deep 3-conv stem: 3x3/s2 3→64, 3x3 64→64, 3x3 64→128, then max pool
+  3/2/1; ``inplanes`` starts at 128;
+* Bottleneck blocks (expansion 4);
+* output stride 8 or 16 by construction-time dilation: in a stage dilated
+  by ``d`` the first block keeps stride 1 and its 3x3 conv gets dilation
+  ``max(d // 2, 1)``, every other 3x3 conv of the stage gets ``d``.
+
+Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
+``layer3.0.downsample.0``), so its checkpoints load as they are. The encoder
+returns the four stage outputs ``[c2, c3, c4, c5]``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from semseg_tpu_torch.ops.pool import max_pool2d
+from .layers import BatchNorm2d, Conv2d, ConvBN
+
+
+class ResBlock(nn.Module):
+    """Bottleneck residual block: 1x1 → 3x3 (stride, dilation) → 1x1."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, *, stride: int = 1,
+                 dilation: int = 1, has_downsample: bool = False):
+        super().__init__()
+        out_ch = planes * self.expansion
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=dilation,
+                            dilation=dilation, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = Conv2d(planes, out_ch, 1, bias=False)
+        self.bn3 = BatchNorm2d(out_ch)
+        self.downsample = (
+            ConvBN(inplanes, out_ch, 1, stride=stride, act=None)
+            if has_downsample else None
+        )
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class ResNetEncoder(nn.Module):
+    """Deep-stem ResNet with optional output-stride dilation."""
+
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
+                 planes: Sequence[int] = (64, 128, 256, 512), *,
+                 dilate_scale: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dilate_scale = dilate_scale
+        self.dtype = dtype
+        self.conv1 = Conv2d(3, 64, 3, stride=2, padding=1, bias=False)
+        self.bn1 = BatchNorm2d(64)
+        self.conv2 = Conv2d(64, 64, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(64)
+        self.conv3 = Conv2d(64, 128, 3, padding=1, bias=False)
+        self.bn3 = BatchNorm2d(128)
+
+        strides, dilations = self.stage_dilations()
+        inplanes = 128
+        for i, (blocks, width) in enumerate(zip(layers, planes)):
+            stride, d = strides[i], dilations[i]
+            out_ch = width * ResBlock.expansion
+            stage = []
+            for j in range(blocks):
+                first = j == 0
+                stage.append(ResBlock(
+                    inplanes if first else out_ch, width,
+                    stride=stride if first else 1,
+                    # The formerly strided conv gets d // 2; all other 3x3
+                    # convs of the stage get d.
+                    dilation=max(d // 2, 1) if first else d,
+                    has_downsample=first and (stride != 1 or inplanes != out_ch),
+                ))
+            inplanes = out_ch
+            self.add_module(f"layer{i + 1}", nn.Sequential(*stage))
+
+    def stage_dilations(self):
+        """Per-stage (stride, dilation) after the reference's surgery."""
+        strides = [1, 2, 2, 2]
+        dilations = [1, 1, 1, 1]
+        if self.dilate_scale == 8:
+            strides[2:] = [1, 1]
+            dilations[2:] = [2, 4]
+        elif self.dilate_scale == 16:
+            strides[3] = 1
+            dilations[3] = 2
+        return strides, dilations
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        x = F.relu(self.bn3(self.conv3(x)))
+        x = max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        features = []
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = stage(x)
+            features.append(x)
+        return features
+
+
+def resnet50(**kw):
+    return ResNetEncoder(layers=(3, 4, 6, 3), **kw)

@@ -1,0 +1,147 @@
+"""The port's model against the JAX package's model on the CPU.
+
+The JAX model is initialised with seeded random weights and its variables go
+through the port's converter (``state_dicts_from_jax``); the same seeded
+numpy image goes through both. A narrow model (one block per stage, planes
+8/16/32/64, fc_dim 256) in float32 is held to atol 1e-4 on probabilities. The
+full-width resnet50dilated + ppm_deepsup at 64x64 uses the tolerance of the
+JAX package's own full-width parity tests (atol 2e-2 on probabilities,
+argmax agreement > 0.999): random weights are scale-brittle.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from semseg_tpu.config import cfg
+from semseg_tpu.models import ModelBuilder as JaxModelBuilder, init_variables
+from semseg_tpu.models import decoders as jax_decoders, resnet as jax_resnet
+from semseg_tpu.models.export import export_state_dicts
+from semseg_tpu.models.segmentation import SegmentationModel as JaxSegmentationModel
+
+from semseg_tpu_torch.models import ModelBuilder, SegmentationModel
+from semseg_tpu_torch.models.convert import SYNCBN_ACCUMULATORS, state_dicts_from_jax
+from semseg_tpu_torch.models.decoders import PPMDeepsup
+from semseg_tpu_torch.models.resnet import ResNetEncoder
+
+ARCH = dict(arch_encoder="resnet50dilated", arch_decoder="ppm_deepsup")
+NARROW = dict(layers=(1, 1, 1, 1), planes=(8, 16, 32, 64))
+
+
+def _perturb_stats(tree, rng):
+    """Non-trivial running statistics, so BN is not the identity."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _perturb_stats(v, rng)
+        elif k == "mean":
+            out[k] = (rng.randn(*v.shape) * 0.1).astype(np.float32)
+        elif k == "var":
+            out[k] = (rng.rand(*v.shape) + 0.5).astype(np.float32)
+        else:
+            out[k] = v
+    return out
+
+
+def narrow_jax_model(seed=0):
+    model = JaxSegmentationModel(
+        encoder=jax_resnet.ResNetEncoder(block="bottleneck", dilate_scale=8, **NARROW),
+        decoder=jax_decoders.PPMDeepsup(num_class=150, fc_dim=256),
+        deep_sup_scale=0.4,
+    )
+    variables = jax.tree.map(np.asarray, init_variables(model, seed=seed, image_size=(64, 64)))
+    rng = np.random.RandomState(seed)
+    variables = {"params": variables["params"],
+                 "batch_stats": _perturb_stats(variables["batch_stats"], rng)}
+    return model, variables
+
+
+def narrow_port_model(variables):
+    enc_sd, dec_sd = state_dicts_from_jax(variables, **ARCH)
+    encoder = ResNetEncoder(dilate_scale=8, **NARROW)
+    decoder = PPMDeepsup(num_class=150, fc_dim=256)
+    encoder.load_state_dict(enc_sd, strict=True)
+    decoder.load_state_dict(dec_sd, strict=True)
+    return SegmentationModel(encoder, decoder).eval().to(memory_format=torch.channels_last)
+
+
+def _run_port(model, img, seg_size):
+    with torch.no_grad():
+        out = model(torch.from_numpy(img).permute(0, 3, 1, 2), seg_size)
+    return out.permute(0, 2, 3, 1).numpy()
+
+
+def test_converter_matches_export():
+    """Keys and values equal export_state_dicts, minus SyncBN accumulators."""
+    _, variables = narrow_jax_model()
+    mine = state_dicts_from_jax(variables, **ARCH)
+    ref = export_state_dicts(variables, **ARCH)
+    for m, r in zip(mine, ref):
+        r = {k: v for k, v in r.items() if not k.endswith(SYNCBN_ACCUMULATORS)}
+        assert sorted(m) == sorted(r)
+        for k in r:
+            np.testing.assert_array_equal(m[k].numpy(), r[k], err_msg=k)
+
+
+def test_port_keys_are_the_reference_keys():
+    _, variables = narrow_jax_model()
+    enc_sd, dec_sd = state_dicts_from_jax(variables, **ARCH)
+    for key in ("conv1.weight", "bn1.running_mean", "layer3.0.conv2.weight",
+                "layer3.0.downsample.0.weight", "layer4.0.downsample.1.running_var"):
+        assert key in enc_sd
+    for key in ("ppm.0.1.weight", "ppm.0.2.running_var", "conv_last.0.weight",
+                "conv_last.4.bias", "cbr_deepsup.0.weight", "conv_last_deepsup.weight"):
+        assert key in dec_sd
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (61, 83)])
+def test_narrow_model_matches_jax(hw):
+    model, variables = narrow_jax_model()
+    img = np.random.RandomState(1).randn(1, *hw, 3).astype(np.float32)
+    ref = np.asarray(model.apply(variables, jnp.asarray(img), seg_size=hw, train=False))
+    out = _run_port(narrow_port_model(variables), img, hw)
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+
+
+def test_dilation_spec_matches_jax():
+    """Stride and dilation of every 3x3 conv after the output-stride-8 surgery."""
+    enc = ResNetEncoder(dilate_scale=8)
+    got = [(b.conv2.stride[0], b.conv2.dilation[0])
+           for stage in (enc.layer3, enc.layer4) for b in stage]
+    assert got == [(1, 1)] + [(1, 2)] * 5 + [(1, 2)] + [(1, 4)] * 2
+    assert enc.layer3[0].downsample[0].stride == (1, 1)
+    assert enc.layer4[0].downsample[0].stride == (1, 1)
+    assert jax_resnet.resnet50(dilate_scale=8).stage_dilations() == enc.stage_dilations()
+
+
+def test_full_width_matches_jax():
+    c = cfg.clone()
+    jax_model = JaxModelBuilder.build_model(c, dtype=jnp.float32)
+    variables = jax_model.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 64, 64, 3)),
+                               seg_size=(64, 64), train=False)
+    img = np.random.RandomState(42).randn(1, 64, 64, 3).astype(np.float32)
+    ref = np.asarray(jax.jit(
+        lambda v, x: jax_model.apply(v, x, seg_size=(64, 64), train=False)
+    )(variables, jnp.asarray(img)))
+
+    c.TPU.compute_dtype = "float32"
+    model = ModelBuilder.build_model(c)
+    enc_sd, dec_sd = state_dicts_from_jax(jax.tree.map(np.asarray, variables), **ARCH)
+    # Inference-only init has no deep-supervision branch; keep the port's.
+    full_dec = model.decoder.state_dict()
+    full_dec.update(dec_sd)
+    model.encoder.load_state_dict(enc_sd, strict=True)
+    model.decoder.load_state_dict(full_dec, strict=True)
+    out = _run_port(model, img, (64, 64))
+    np.testing.assert_allclose(out, ref, atol=2e-2, rtol=0)
+    assert (out.argmax(-1) == ref.argmax(-1)).mean() > 0.999
+
+
+def test_builder_rejects_unported_architectures():
+    with pytest.raises(NotImplementedError):
+        ModelBuilder.build_encoder("resnet18dilated")
+    with pytest.raises(NotImplementedError):
+        ModelBuilder.build_decoder("upernet")

@@ -1,0 +1,95 @@
+"""The port's pyramid pool against the JAX package's Pallas kernel.
+
+On the CPU the port's ``pyramid_pool`` runs its plain version; it is held
+against JAX ``pyramid_pool(..., interpret=True)`` and against four
+``ops.adaptive_avg_pool2d`` calls. float32 within atol 1e-5 (summation
+order); bfloat16 compared in float32 within rtol 8e-3, one bf16 ulp, since
+each side rounds its f32 mean once. The CUDA kernel is held against the
+plain version on the card by the test marked ``cuda``; JAX is imported
+inside the tests that use it, so that this file also runs where only
+PyTorch is installed (see README).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from semseg_tpu_torch.ops.kernels import ppm_pool
+
+SCALES = (1, 2, 3, 6)
+SHAPES = [(2, 13, 17, 256), (1, 1, 1, 128), (1, 75, 100, 128), (1, 13, 17, 200)]
+
+
+def _input(shape, seed=0):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def _jax():
+    import jax.numpy as jnp
+
+    from semseg_tpu import ops as jops
+    from semseg_tpu.ops.pallas.ppm_pool import pyramid_pool
+
+    return jnp, jops, pyramid_pool
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_f32_matches_pallas_and_adaptive_pool(shape):
+    jnp, jops, jax_pyramid_pool = _jax()
+    x = _input(shape)
+    outs = ppm_pool.pyramid_pool(torch.from_numpy(x))
+    pallas = jax_pyramid_pool(jnp.asarray(x), SCALES, interpret=True)
+    for s, o, p in zip(SCALES, outs, pallas):
+        assert o.shape == (shape[0], s, s, shape[3]) and o.dtype == torch.float32
+        np.testing.assert_allclose(o.numpy(), np.asarray(p), atol=1e-5, rtol=0)
+        ref = jops.adaptive_avg_pool2d(jnp.asarray(x), s)
+        np.testing.assert_allclose(o.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 17, 256), (1, 13, 17, 200)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bf16_matches_pallas(shape):
+    jnp, _, jax_pyramid_pool = _jax()
+    x = _input(shape, seed=1)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    outs = ppm_pool.pyramid_pool(xb)
+    pallas = jax_pyramid_pool(jnp.asarray(xb.float().numpy(), jnp.bfloat16),
+                              SCALES, interpret=True)
+    for o, p in zip(outs, pallas):
+        assert o.dtype == torch.bfloat16
+        np.testing.assert_allclose(o.float().numpy(), np.asarray(p, np.float32),
+                                   rtol=8e-3, atol=0)
+
+
+def test_cpu_call_does_not_count_a_launch():
+    before = ppm_pool.LAUNCHES
+    ppm_pool.pyramid_pool(torch.from_numpy(_input((1, 5, 7, 16))))
+    assert ppm_pool.LAUNCHES == before
+
+
+@pytest.mark.parametrize("device,scales,match", [
+    ("meta", (1, 2, 3, 6), "unsupported device"),
+    ("cpu", (1, 2), "computes scales"),
+])
+def test_rejects_unsupported_input(device, scales, match):
+    x = torch.zeros(1, 4, 4, 8, device=device)
+    with pytest.raises(ValueError, match=match):
+        ppm_pool.pyramid_pool(x, scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 75, 100, 2048), (2, 13, 17, 256), (1, 1, 1, 2048),
+                                   (1, 75, 100, 720)], ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain_on_card(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    x = torch.from_numpy(_input(shape, seed=2)).to("cuda", dtype)
+    before = ppm_pool.LAUNCHES
+    outs = ppm_pool.pyramid_pool(x)
+    torch.cuda.synchronize()
+    assert ppm_pool.LAUNCHES == before + 1
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=0, rtol=8e-3)
+    for o, p in zip(outs, ppm_pool.pyramid_pool_plain(x)):
+        torch.testing.assert_close(o.float(), p.float(), **tol)
