@@ -1,8 +1,10 @@
-"""Inference CLI (``semseg_tpu/cli/test.py``), exact multi-scale engine.
+"""Inference CLI (``semseg_tpu/cli/test.py``).
 
 Segments a file or a directory of .jpg images, logs each prediction's class
 histogram (classes over 0.1% of pixels) and writes a side-by-side
-[image | colorized prediction] PNG into ``cfg.TEST.result``.
+[image | colorized prediction] PNG into ``cfg.TEST.result``. By default the
+bucketed per-image engine runs over uint8 levels resized onto the step
+lattice, as the JAX CLI does; ``--exact`` runs the reference computation.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from semseg_tpu.data import EvalLoader, TestDataset
 from semseg_tpu.utils import colorEncode, find_recursive, load_class_names, setup_logger
 
 from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
-from semseg_tpu_torch.cli.eval import build_engine
+from semseg_tpu_torch.cli.eval import build_engines
 
 
 def visualize_result(item, pred, save_dir, logger):
@@ -44,8 +46,7 @@ def main(argv=None):
     parser.add_argument("--cfg", default="config/ade20k-resnet50dilated-ppm_deepsup.yaml")
     parser.add_argument("--gpu", default=None, help="reference CLI parity")
     parser.add_argument("--exact", action="store_true",
-                        help="accepted for parity with the JAX CLI; the port's "
-                             "engine is always exact")
+                        help="per-image reference computation (no bucketing)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = parser.parse_args(argv)
@@ -61,9 +62,12 @@ def main(argv=None):
         raise FileNotFoundError(f"no .jpg images under {args.imgs}")
 
     logger = setup_logger()
-    engine = build_engine(cfg, args.device)
-    dataset = TestDataset([{"fpath_img": x} for x in imgs], cfg.DATASET,
-                          device_preprocess=False, bucket_step=None)
+    engine = build_engines(cfg, 1, exact=args.exact, device=args.device)[0]
+    dataset = TestDataset(
+        [{"fpath_img": x} for x in imgs], cfg.DATASET,
+        device_preprocess=not args.exact,
+        bucket_step=None if args.exact else cfg.TPU.eval_bucket_step,
+    )
     for item in EvalLoader(dataset, num_workers=2, prefetch=4):
         pred = engine.predict(item["img_data"], item["img_ori"].shape[:2])
         visualize_result(item, pred, cfg.TEST.result, logger)

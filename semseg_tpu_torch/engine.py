@@ -1,35 +1,134 @@
-"""Multi-scale inference engine (``semseg_tpu/engine.py``), exact mode.
+"""Multi-scale inference engines (``semseg_tpu/engine.py``).
 
-``InferenceEngine(exact=True)`` is the reference computation op for op: for
-every level of a host pyramid, the full forward with the in-model bilinear
-resize to label size and softmax, then the mean over levels and the argmax.
-The mean stays in float32 on the device; ``predict`` fetches only the
-argmax map. The batched, packed and device-pyramid engines are not ported
-yet.
+* ``InferenceEngine(exact=True)`` is the reference computation op for op:
+  for every level of a host pyramid, the full forward with the in-model
+  bilinear resize to label size and softmax, then the mean over levels and
+  the argmax.
+* ``InferenceEngine(exact=False)`` is the bucketed per-image engine: each
+  level is padded to its bucket on the step lattice (the dataset resizes
+  levels onto it, so usually nothing is padded), normalized on the device
+  with the padding zeroed, and run to logits at decoder resolution with
+  pad-aware pooling. The valid region is cropped, resized to label size and
+  soft-maxed on the device (the JAX package does that last step on the host
+  with cv2).
+* ``BatchedInferenceEngine`` batches same-bucket levels ACROSS images,
+  optionally folding under-filled buckets into larger ones, and keeps one
+  f32 score canvas per image on the device: resize, softmax and the sum
+  over levels run there, and only argmax maps or packed metric vectors come
+  back.
+
+Host arrays go up in one coalesced copy per chunk (pinned, on a side stream
+for a card, see ``_Upload``). Canvases are (H, W, num_class), as in the JAX
+package; model tensors are NCHW and channels_last in memory.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from semseg_tpu.data.transforms import MEAN, STD
+from semseg_tpu.data.dataset import _effective_lattice
+from semseg_tpu.data.transforms import MEAN, STD, round2nearest_multiple as _round_up
+
+from semseg_tpu_torch.ops.preproc import normalize_u8_masked
+from semseg_tpu_torch.ops.resize import resize_bilinear
+from semseg_tpu_torch.ops.resize_dynamic import resize_matrix
+
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32,
+                 np.dtype(np.float32): torch.float32}
+
+
+class _Upload:
+    """Host arrays packed into one buffer that reaches the device in one copy.
+
+    For a card the buffer is pinned and the copy runs on ``stream`` (a side
+    stream), followed by an event; ``get`` makes the caller's current stream
+    wait on that event and marks the device buffer as used there
+    (``record_stream``), so the allocator does not hand its memory back to
+    the side stream while the compute stream still reads it. The pinned
+    buffer itself is safe to drop at once: PyTorch's host allocator does not
+    reuse a pinned block before the copies that read it have completed.
+    """
+
+    def __init__(self, specs, device: torch.device):
+        self.device = device
+        self._layout, total = [], 0
+        for shape, dtype in specs:
+            dtype = np.dtype(dtype)
+            total = -(-total // 16) * 16
+            nbytes = int(np.prod(shape)) * dtype.itemsize
+            self._layout.append((total, nbytes, tuple(shape), dtype))
+            total += nbytes
+        self.host = torch.zeros(total, dtype=torch.uint8,
+                                pin_memory=device.type == "cuda")
+        buf = self.host.numpy()
+        #: numpy views to fill before ``send``.
+        self.arrays = [buf[o:o + n].view(dt).reshape(shape)
+                       for o, n, shape, dt in self._layout]
+        self._dev = None
+        self._event = None
+
+    @classmethod
+    def of(cls, arrays, device):
+        up = cls([(a.shape, a.dtype) for a in arrays], device)
+        for dst, src in zip(up.arrays, arrays):
+            dst[...] = src
+        return up
+
+    def send(self, stream=None) -> "_Upload":
+        if self.device.type != "cuda":
+            self._dev = self.host
+            return self
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            self._dev = self.host.to(self.device, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        return self
+
+    def get(self):
+        """Device views of the arrays, ready on the current stream."""
+        if self._event is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(self._event)
+            self._dev.record_stream(current)
+        return [self._dev[o:o + n].view(_TORCH_DTYPES[dt]).view(shape)
+                for o, n, shape, dt in self._layout]
+
+
+def _fetch_dtype(dtype) -> torch.dtype:
+    if dtype is None:
+        return torch.float32
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
 class InferenceEngine:
     def __init__(self, model, *, num_class: int = 150, device="cuda",
-                 exact: bool = True):
-        if not exact:
-            raise NotImplementedError(
-                "only the exact engine is ported; the batched engine is "
-                "ROADMAP item 5"
-            )
+                 exact: bool = True, output_stride: int = 8,
+                 bucket_step: int = 64, padding_constant: int = 1,
+                 fetch_dtype=None):
         self.model = model
         self.num_class = num_class
         self.device = torch.device(device)
+        self.exact = exact
+        self.output_stride = output_stride
+        # The dataset's lattice rule, so level shapes keep the model's
+        # padding_constant alignment.
+        self.bucket_step = _effective_lattice(
+            max(bucket_step or 0, padding_constant), padding_constant
+        )
+        # Dtype the logits are rounded to before post-processing, as the
+        # JAX package rounds them for its device→host fetch.
+        self.fetch_dtype = _fetch_dtype(fetch_dtype)
 
+    def _bucket_key(self, h: int, w: int):
+        """Lattice bucket of an (h, w) task."""
+        return _round_up(h, self.bucket_step), _round_up(w, self.bucket_step)
+
+    # -- forwards ------------------------------------------------------------
     def _to_device(self, img: np.ndarray) -> torch.Tensor:
         """(1, H, W, 3) host image → normalized NCHW channels_last tensor."""
         if img.dtype == np.uint8:
@@ -38,15 +137,54 @@ class InferenceEngine:
         # An NHWC tensor seen as NCHW is channels_last without a copy.
         return x.permute(0, 3, 1, 2)
 
+    def _logits_raw_fn(self, img_u8: torch.Tensor, hw: torch.Tensor,
+                       to_fetch: bool = True) -> torch.Tensor:
+        """uint8 (N, Hp, Wp, 3) canvas → (N, C, hp, wp) logits: normalize and
+        zero the padding on the device, then the forward, whose PPM pools
+        bin each sample's valid extent ``hw`` ((N, 2) int32) only. Rounded
+        to ``fetch_dtype`` only when they go to the host (``to_fetch``); the
+        on-device epilogue keeps float32."""
+        x = normalize_u8_masked(img_u8, hw[:, 0], hw[:, 1])
+        out = self.model(x.permute(0, 3, 1, 2), valid_hw=hw)
+        return out.to(self.fetch_dtype) if to_fetch else out
+
+    def _postprocess(self, logits: torch.Tensor, h: int, w: int, seg_size) -> torch.Tensor:
+        """(C, hp, wp) logits → (C, H, W) f32 probabilities at ``seg_size``:
+        crop the valid region, bilinear resize (align_corners=False),
+        softmax over classes. Runs where ``logits`` lies."""
+        os_ = self.output_stride
+        x = logits[:, : -(-h // os_), : -(-w // os_)].to(torch.float32)
+        x = resize_bilinear(x[None], tuple(seg_size))[0]
+        return torch.softmax(x, dim=0)
+
+    # -- public API ------------------------------------------------------------
     @torch.inference_mode()
     def mean_scores(self, pyramid: Sequence[np.ndarray], seg_size) -> torch.Tensor:
         """(num_class, H, W) float32 softmax scores averaged over the pyramid,
         on the device."""
         acc = torch.zeros((self.num_class, *seg_size), dtype=torch.float32,
                           device=self.device)
+        if self.exact:
+            for img in pyramid:
+                acc += self.model(self._to_device(img), tuple(seg_size))[0]
+            return acc / len(pyramid)
+
+        # Pad every level to its bucket and send the pyramid in one copy.
+        padded, hws = [], []
         for img in pyramid:
-            acc += self.model(self._to_device(img), tuple(seg_size))[0]
-        return acc / len(pyramid)
+            if img.dtype != np.uint8:
+                raise TypeError("the bucketed engine takes raw uint8 pyramids")
+            h, w = img.shape[1], img.shape[2]
+            ph, pw = self._bucket_key(h, w)
+            if (ph, pw) != (h, w):
+                img = np.pad(img, ((0, 0), (0, ph - h), (0, pw - w), (0, 0)))
+            padded.append(np.ascontiguousarray(img))
+            hws.append(np.array([[h, w]], np.int32))
+        dev = _Upload.of(padded + hws, self.device).send().get()
+        n = len(pyramid)
+        for img, hw, (h, w) in zip(dev[:n], dev[n:], (a[0] for a in hws)):
+            acc += self._postprocess(self._logits_raw_fn(img, hw)[0], int(h), int(w), seg_size)
+        return acc / n
 
     def scores_for_pyramid(self, pyramid: Sequence[np.ndarray], seg_size) -> np.ndarray:
         """(H, W, num_class) float32 scores (mean over scales), on the host."""
@@ -55,3 +193,373 @@ class InferenceEngine:
     def predict(self, pyramid: Sequence[np.ndarray], seg_size) -> np.ndarray:
         """Argmax class map at ``seg_size`` (reference eval.py:74-75)."""
         return self.mean_scores(pyramid, seg_size).argmax(0).cpu().numpy()
+
+
+def output_stride_for(cfg) -> int:
+    """The decoder's training-mode output stride (= label downsample rate)."""
+    return cfg.DATASET.segm_downsampling_rate
+
+
+class BatchedInferenceEngine(InferenceEngine):
+    """Throughput engine: batches same-bucket pyramid levels across images.
+
+    Numerically the per-image bucketed engine: BN runs on running
+    statistics and every task keeps its own valid-region mask and pooling
+    extent.
+    """
+
+    def __init__(self, *args, batch_size: int = 4, canvas_budget_mb: int = 4096,
+                 pack_buckets: bool = False, pack_max_area_ratio: float = 1.3,
+                 pack_max_pad_px: int = 32, **kw):
+        kw.setdefault("exact", False)
+        super().__init__(*args, **kw)
+        self.batch_size = batch_size
+        # Fold under-filled bucket groups into larger buckets when the
+        # padded-area cost model says so, capped in area ratio and in pad
+        # per dimension (conv-border bleed grows with the absolute pad).
+        self.pack_buckets = pack_buckets
+        self.pack_max_area_ratio = pack_max_area_ratio
+        self.pack_max_pad_px = pack_max_pad_px
+        # Bound on simultaneously live per-image f32 score canvases.
+        self.canvas_budget_bytes = canvas_budget_mb * (1 << 20)
+        self._upload_stream = (torch.cuda.Stream(device=self.device)
+                               if self.device.type == "cuda" else None)
+
+    # -- on-device post-processing ------------------------------------------
+    def _accum_fn(self, acc, logits, hv, wv, H, W):
+        """acc += softmax(bilinear_resize(logits[:, :hv, :wv] → (H, W))), in
+        place, inside (H, W) only.
+
+        ``acc``: (Hp, Wp, C) f32 canvas; ``logits``: (C, hp, wp), one sample
+        of an NCHW channels_last batch. The resize is two products with
+        dense resize matrices, as the JAX package computes it; rows past
+        (H, W) are not computed at all instead of masked.
+        """
+        x = logits.permute(1, 2, 0).to(torch.float32)
+        hp, wp, _ = x.shape
+        m_h = resize_matrix(H, hp, H, hv, device=x.device)
+        m_w = resize_matrix(W, wp, W, wv, device=x.device)
+        r = torch.einsum("ik,kwc->iwc", m_h, x)
+        r = torch.einsum("jw,iwc->ijc", m_w, r)
+        acc[:H, :W] += torch.softmax(r, dim=-1)
+        return acc
+
+    def _argmax_fn(self, acc):
+        return acc.argmax(-1).to(torch.uint8)
+
+    def _metrics_fn(self, acc, label_u8):
+        """Pixel accuracy and per-class intersection/union on the device.
+
+        ``utils.accuracy`` / ``intersectionAndUnion`` semantics: 255 is void
+        (the reference's -1, canvas padding included) and counts in neither
+        histogram. Returns one packed f32 vector ``[acc_sum, pix_sum,
+        inter(C), union(C)]``; the counts are exact below 2^24 pixels.
+        Histograms are scatter-adds into C+1 bins (the last one takes what
+        is dropped), which need no host sync.
+        """
+        C = self.num_class
+        pred = acc.argmax(-1)
+        label = label_u8.to(torch.int64)
+        valid = label_u8 != 255
+        hit = valid & (pred == label)
+
+        def hist(idx, keep):
+            idx = torch.where(keep, idx, C).reshape(-1)
+            out = torch.zeros(C + 1, dtype=torch.int64, device=idx.device)
+            return out.scatter_add_(0, idx, torch.ones_like(idx))[:C]
+
+        inter = hist(label, hit)
+        union = hist(pred, valid) + hist(label, valid & (label < C)) - inter
+        return torch.cat([torch.stack([hit.sum(), valid.sum()]), inter, union]).to(torch.float32)
+
+    # -- grouping ------------------------------------------------------------
+    def _group_by_bucket(self, items):
+        """Group (item, level) tasks by padded bucket shape."""
+        groups: dict = {}
+        for i, pyramid in enumerate(items):
+            for arr in pyramid:
+                if arr.dtype != np.uint8:
+                    raise TypeError("the batched engine takes raw uint8 pyramids")
+                h, w = arr.shape[1], arr.shape[2]
+                groups.setdefault(self._bucket_key(h, w), []).append((i, arr, h, w))
+        return self._pack_groups(groups)
+
+    def _pack_groups(self, groups):
+        """Fold under-filled bucket groups into LARGER buckets when the
+        batch-fill gain beats the extra padded area.
+
+        A group of n tasks at bucket (h, w) costs ``ceil(n/B) * h * w``.
+        Greedy smallest-area-first: fold a group into whichever covering
+        bucket (both dims >=, within the area and pad caps) lowers the total
+        cost most.
+        """
+        if not self.pack_buckets or len(groups) <= 1:
+            return groups
+        B = self.batch_size
+
+        def cost(key, n):
+            return -(-n // B) * key[0] * key[1]
+
+        for k in sorted(groups, key=lambda k: k[0] * k[1]):
+            if k not in groups:
+                continue
+            n_k = len(groups[k])
+            best, best_delta = None, 0
+            for k2 in groups:
+                if k2 == k or k2[0] < k[0] or k2[1] < k[1]:
+                    continue
+                if k2[0] * k2[1] > self.pack_max_area_ratio * k[0] * k[1]:
+                    continue
+                if k2[0] - k[0] > self.pack_max_pad_px or k2[1] - k[1] > self.pack_max_pad_px:
+                    continue
+                n2 = len(groups[k2])
+                delta = cost(k2, n2 + n_k) - cost(k2, n2) - cost(k, n_k)
+                if delta < best_delta:
+                    best, best_delta = k2, delta
+            if best is not None:
+                groups[best].extend(groups.pop(k))
+        return groups
+
+    def _canvas_windows(self, seg_sizes, item_indices):
+        """Partition items into windows whose summed f32 canvas bytes stay
+        under ``canvas_budget_bytes`` (every window holds >= 1 item)."""
+        windows, cur, cur_bytes = [], [], 0
+        for i in item_indices:
+            ch, cw = self._bucket_key(*seg_sizes[i])
+            b = ch * cw * self.num_class * 4
+            if cur and cur_bytes + b > self.canvas_budget_bytes:
+                windows.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(i)
+            cur_bytes += b
+        if cur:
+            windows.append(cur)
+        return windows
+
+    def _void_label_canvas(self, label, H, W):
+        """uint8 label canvas at the score-canvas shape: 255 = void (the
+        reference's -1); padding beyond (H, W) stays void."""
+        lab = np.full(self._bucket_key(H, W), 255, np.uint8)
+        lab[:H, :W] = np.where(label < 0, 255, label).astype(np.uint8)
+        return lab
+
+    # -- chunk loop ----------------------------------------------------------
+    def _stage_host_chunk(self, key, padded_chunk):
+        """Assemble one padded chunk in a host buffer and start its upload
+        (one copy, on the side stream for a card); no forward."""
+        ph, pw = key
+        up = _Upload([((self.batch_size, ph, pw, 3), np.uint8),
+                      ((self.batch_size, 2), np.int32)], self.device)
+        batch, hw = up.arrays
+        for j, (_, arr, h, w) in enumerate(padded_chunk):
+            batch[j, :h, :w] = arr[0]
+            hw[j] = (h, w)
+        return up.send(self._upload_stream)
+
+    def _forward_host_chunk(self, key, padded_chunk, staged=None, *, to_fetch=False):
+        """Forward one padded chunk; returns (logits, per-entry valid (h, w)).
+
+        ``staged``: the chunk's upload from ``_stage_host_chunk``; None =
+        stage it here.
+        """
+        if staged is None:
+            staged = self._stage_host_chunk(key, padded_chunk)
+        img, hw = staged.get()
+        logits = self._logits_raw_fn(img, hw, to_fetch)
+        return logits, [(h, w) for (_, _, h, w) in padded_chunk]
+
+    def _schedule(self, groups):
+        """Chunks in dispatch order: (key, tasks, padded). Each bucket's last
+        chunk is padded to the full batch by repeating its last task, so a
+        bucket always runs at one shape; surplus outputs are dropped."""
+        schedule = []
+        for key, tasks in groups.items():
+            for lo in range(0, len(tasks), self.batch_size):
+                chunk = tasks[lo:lo + self.batch_size]
+                padded = chunk + [chunk[-1]] * (self.batch_size - len(chunk))
+                schedule.append((key, chunk, padded))
+        return schedule
+
+    def _accumulate_on_device(self, seg_sizes, groups, n_levels,
+                              forward_chunk, finalize, stage_chunk):
+        """Shared chunk loop: batched forwards into per-image score canvases.
+
+        ``groups``: {shape_key: [task, ...]}, ``task[0]`` the item index;
+        ``n_levels``: {item_idx: level count}; ``stage_chunk(key, padded)``
+        assembles and uploads a chunk, on an uploader thread at most two
+        chunks ahead of the forwards; ``forward_chunk(key, padded, staged)``
+        returns (logits, per-entry valid (h, w)); ``finalize(item_idx,
+        canvas)`` runs once an image's last level is in, and its canvas is
+        dropped. Returns {item_idx: finalize result}.
+        """
+        os_ = self.output_stride
+        accs: dict = {}
+        remaining = dict(n_levels)
+        out: dict = {}
+        schedule = self._schedule(groups)
+
+        staged_q: queue.Queue = queue.Queue(maxsize=2)
+        # If the consumer dies, the uploader must not stay blocked in put()
+        # holding staged buffers: the stop event and the drain on exit let
+        # it finish.
+        stop = threading.Event()
+
+        def _bounded_put(item):
+            while not stop.is_set():
+                try:
+                    staged_q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+
+        def _uploader():
+            try:
+                for key, _, padded in schedule:
+                    if stop.is_set():
+                        return
+                    _bounded_put(stage_chunk(key, padded))
+            except BaseException as e:  # handed to the consumer, which raises it
+                _bounded_put(e)
+
+        uploader = threading.Thread(target=_uploader, name="chunk-uploader", daemon=True)
+        uploader.start()
+        try:
+            for key, chunk, padded in schedule:
+                staged = staged_q.get()
+                if isinstance(staged, BaseException):
+                    raise staged
+                logits, hws = forward_chunk(key, padded, staged)
+                for j, task in enumerate(chunk):
+                    item_idx = task[0]
+                    h, w = hws[j]
+                    H, W = seg_sizes[item_idx]
+                    if item_idx not in accs:
+                        # Canvas at the lattice shape: its padding is never
+                        # written and is void in the label.
+                        accs[item_idx] = torch.zeros(
+                            (*self._bucket_key(H, W), self.num_class),
+                            dtype=torch.float32, device=self.device,
+                        )
+                    self._accum_fn(accs[item_idx], logits[j],
+                                   -(-h // os_), -(-w // os_), H, W)
+                    remaining[item_idx] -= 1
+                    if remaining[item_idx] == 0:
+                        out[item_idx] = finalize(item_idx, accs.pop(item_idx))
+        finally:
+            stop.set()
+            while True:  # drop staged buffers
+                try:
+                    staged_q.get_nowait()
+                except queue.Empty:
+                    break
+            uploader.join(timeout=5.0)
+        return out
+
+    def _windowed_accumulate(self, items, seg_sizes, finalize, prepare_window=None):
+        """Canvas-budget-windowed chunk loop over host pyramids: group each
+        window's levels by bucket, forward and accumulate, finalize per
+        item. ``prepare_window(window)`` runs before the window's forwards."""
+        out: dict = {}
+        for window in self._canvas_windows(seg_sizes, range(len(items))):
+            if prepare_window is not None:
+                prepare_window(window)
+            in_window = set(window)
+            groups = self._group_by_bucket(
+                [items[i] if i in in_window else [] for i in range(len(items))]
+            )
+            out.update(self._accumulate_on_device(
+                seg_sizes, groups, {i: len(items[i]) for i in window},
+                self._forward_host_chunk, finalize, self._stage_host_chunk,
+            ))
+        return out
+
+    # -- public API ------------------------------------------------------------
+    @torch.inference_mode()
+    def batched_metrics(self, items, labels):
+        """Multi-scale predict and metrics on the device.
+
+        ``items``: pyramids of (1, H_s, W_s, 3) uint8 levels; ``labels``:
+        per-item (H, W) int arrays (-1 = void). Returns a list of (acc_sum,
+        pix_sum, intersection, union) numpy tuples, fetched in one copy.
+        """
+        if self.num_class >= 255:
+            raise ValueError("uint8 label transport needs num_class < 255")
+        if not items:
+            return []
+        if not all(len(p) for p in items):
+            raise ValueError("every item needs >= 1 level")
+        seg_sizes = [lab.shape for lab in labels]
+        finalize, prepare_window = self._metrics_finalizer(seg_sizes, labels)
+        out = self._windowed_accumulate(items, seg_sizes, finalize,
+                                        prepare_window=prepare_window)
+        return self._fetch_packed_metrics(out, len(items))
+
+    def _metrics_finalizer(self, seg_sizes, labels):
+        """Returns (finalize, prepare_window): each window's uint8 label
+        canvases go up in one copy."""
+        dev_labels: dict = {}
+
+        def prepare_window(window):
+            host = [self._void_label_canvas(labels[i], *seg_sizes[i]) for i in window]
+            for i, d in zip(window, _Upload.of(host, self.device).send().get()):
+                dev_labels[i] = d
+
+        def finalize(item_idx, acc):
+            return self._metrics_fn(acc, dev_labels.pop(item_idx))
+
+        return finalize, prepare_window
+
+    def _fetch_packed_metrics(self, out, n_items):
+        """Stack every per-image metric vector and fetch in one copy."""
+        packed = torch.stack([out[i] for i in range(n_items)]).cpu().numpy()
+        C = self.num_class
+        return [(row[0], row[1], row[2:2 + C], row[2 + C:2 + 2 * C]) for row in packed]
+
+    def _device_postproc_predict(self, items, seg_sizes):
+        """Resize, softmax, sum and argmax on the device; the uint8 maps come
+        back in one copy."""
+        if self.num_class >= 255:
+            raise ValueError("uint8 prediction maps need num_class < 255")
+        preds = self._windowed_accumulate(
+            items, seg_sizes,
+            lambda i, acc: self._argmax_fn(acc)[:seg_sizes[i][0], :seg_sizes[i][1]],
+        )
+        flat = torch.cat([preds[i].reshape(-1) for i in range(len(items))]).cpu().numpy()
+        res, lo = [], 0
+        for H, W in seg_sizes:
+            res.append(flat[lo:lo + H * W].reshape(H, W).astype(np.int64))
+            lo += H * W
+        return res
+
+    @torch.inference_mode()
+    def batched_predict(self, items, seg_sizes, *, device_postproc=True):
+        """Class maps for a list of multi-scale pyramids.
+
+        ``items``: pyramids of (1, H_s, W_s, 3) uint8 levels; ``seg_sizes``:
+        per-item (H, W). Returns (H, W) int argmax maps in item order. With
+        ``device_postproc=False`` each chunk's logits come to the host in one
+        copy, in ``fetch_dtype``, and are post-processed and summed there.
+        """
+        n_items = len(items)
+        if not n_items:
+            return []
+        if not all(len(p) for p in items):
+            raise ValueError("every item needs >= 1 level")
+        if device_postproc:
+            return self._device_postproc_predict(items, seg_sizes)
+
+        # Host canvases, windowed by the same budget as the device path.
+        res = [None] * n_items
+        for window in self._canvas_windows(seg_sizes, range(n_items)):
+            in_window = set(window)
+            groups = self._group_by_bucket(
+                [items[i] if i in in_window else [] for i in range(n_items)]
+            )
+            accs = {i: torch.zeros((self.num_class, *seg_sizes[i])) for i in window}
+            for key, chunk, padded in self._schedule(groups):
+                logits = self._forward_host_chunk(key, padded, to_fetch=True)[0].cpu()
+                for row, (i, _, h, w) in zip(logits, chunk):
+                    accs[i] += self._postprocess(row, h, w, seg_sizes[i])
+            for i in window:
+                res[i] = (accs[i] / len(items[i])).argmax(0).numpy()
+        return res

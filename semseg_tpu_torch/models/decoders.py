@@ -2,8 +2,16 @@
 
 With ``seg_size=(H, W)`` the logits are cast to float32, resized bilinearly
 to ``seg_size`` and turned into softmax probabilities, as the reference's
-``segSize`` protocol does. The four pyramid pools run in one call of the
-hand-written kernel ``ops.kernels.pyramid_pool`` on the NHWC view of conv5.
+``segSize`` protocol does. With ``seg_size=None`` they come back as float32
+logits at decoder resolution (the bucketed engines' call). The four
+pyramid pools run in one call of the hand-written kernel
+``ops.kernels.pyramid_pool`` on the NHWC view of conv5.
+
+``valid_hw`` (per feature map, (N, 2) int32: each sample's true extent
+inside a padded bucket canvas) makes the pyramid branches pad-aware, as
+``_PPMPool`` is in the JAX package: the pools bin over the valid region
+only and each pooled grid is upsampled back onto that region, zero beyond
+it, so the global pools never ingest the canvas padding.
 
 Slot names follow the reference: ``ppm.{i}`` is ``Sequential(pool, conv,
 BN, ReLU)``, ``conv_last`` is ``Sequential(conv, BN, ReLU, Dropout2d,
@@ -20,6 +28,7 @@ from torch import nn
 from semseg_tpu_torch.ops.dtypes import acc_dtype
 from semseg_tpu_torch.ops.kernels.ppm_pool import SCALES, pyramid_pool
 from semseg_tpu_torch.ops.resize import resize_bilinear
+from semseg_tpu_torch.ops.resize_dynamic import upsample_grid_valid
 from .layers import BatchNorm2d, Conv2d, ConvBN, Dropout2d, _Act
 
 
@@ -51,20 +60,23 @@ class PPM(nn.Module):
             Conv2d(512, num_class, 1),
         )
 
-    def forward(self, conv_out, seg_size=None):
-        if seg_size is None:
-            raise NotImplementedError(
-                "only the inference path (seg_size given) is ported"
-            )
+    def forward(self, conv_out, seg_size=None, valid_hw=None):
         conv5 = conv_out[-1]
         h, w = conv5.shape[2:]
-        pooled = pyramid_pool(conv5.permute(0, 2, 3, 1), SCALES)
+        valid = None if valid_hw is None else valid_hw[-1]
+        pooled = pyramid_pool(conv5.permute(0, 2, 3, 1), SCALES, valid_hw=valid)
         pyramid = [conv5]
         for branch, p in zip(self.ppm, pooled):
             y = branch[1:](p.permute(0, 3, 1, 2))
-            pyramid.append(resize_bilinear(y, (h, w)))
+            if valid is None:
+                pyramid.append(resize_bilinear(y, (h, w)))
+            else:
+                up = upsample_grid_valid(y.permute(0, 2, 3, 1), (h, w), valid)
+                pyramid.append(up.permute(0, 3, 1, 2))
         x = self.conv_last(torch.cat(pyramid, dim=1))
-        return _finish(x, seg_size)
+        if seg_size is not None:
+            return _finish(x, seg_size)
+        return x.to(acc_dtype(x.dtype))
 
 
 class PPMDeepsup(PPM):

@@ -1,9 +1,11 @@
-"""The port's exact engine and CLIs on the CPU.
+"""The port's per-image engines and CLIs on the CPU.
 
-The engine is held against the JAX package's ``InferenceEngine(exact=True)``
-on a 2-scale pyramid through a narrow float32 model, within atol 1e-4 on the
-averaged probabilities. The CLIs run end to end on the CPU (``--device
-cpu``) with a random reference-format ``.pth`` pair.
+The exact engine is held against the JAX package's
+``InferenceEngine(exact=True)`` and the bucketed per-image engine against
+``InferenceEngine(exact=False)`` (float32 fetch, no denylist), on 2-scale
+pyramids through a narrow float32 model, within atol 1e-4 on the averaged
+probabilities. The CLIs run end to end on the CPU (``--device cpu``) with a
+random reference-format ``.pth`` pair.
 """
 
 import json
@@ -48,9 +50,31 @@ def test_exact_engine_matches_jax():
     np.testing.assert_array_equal(engine.predict(pyramid, seg_size), ref.argmax(-1))
 
 
-def test_engine_has_no_batched_mode():
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(None, device="cpu", exact=False)
+def test_bucketed_engine_matches_jax():
+    """Levels off the step-8 lattice are padded to their bucket, so the
+    valid-region mask and the pad-aware pools do real work."""
+    jax_model, variables = narrow_jax_model()
+    rng = np.random.RandomState(7)
+    pyramid = [rng.randint(0, 256, (1, 45, 61, 3)).astype(np.uint8),
+               rng.randint(0, 256, (1, 64, 80, 3)).astype(np.uint8),
+               rng.randint(0, 256, (1, 37, 50, 3)).astype(np.uint8)]
+    seg_size = (47, 63)
+    ref_engine = JaxInferenceEngine(jax_model, variables, exact=False, bucket_step=8,
+                                    bucket_denylist=(), fetch_dtype=None)
+    ref = ref_engine.scores_for_pyramid(pyramid, seg_size)
+
+    engine = InferenceEngine(narrow_port_model(variables), device="cpu", exact=False,
+                             bucket_step=8)
+    scores = engine.scores_for_pyramid(pyramid, seg_size)
+    assert scores.shape == (*seg_size, 150) and scores.dtype == np.float32
+    np.testing.assert_allclose(scores, ref, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(engine.predict(pyramid, seg_size), ref.argmax(-1))
+
+
+def test_bucketed_engine_takes_uint8_levels_only():
+    engine = InferenceEngine(None, device="cpu", exact=False, bucket_step=8)
+    with pytest.raises(TypeError, match="uint8"):
+        engine.predict([np.zeros((1, 40, 56, 3), np.float32)], (40, 56))
 
 
 @pytest.fixture(scope="module")
@@ -82,24 +106,61 @@ def test_test_cli_writes_png(reference_pth, tmp_path):
     assert png.shape == (48, 128, 3)
 
 
-def test_eval_cli_exact(reference_pth, tmp_path):
-    rng = np.random.RandomState(5)
+@pytest.mark.parametrize("exact", [False, True], ids=["default", "exact"])
+def test_test_cli_runs_the_jax_clis_engine(reference_pth, tmp_path, monkeypatch, exact):
+    """With no flags the test CLI runs the bucketed per-image engine over
+    uint8 levels on the step-8 lattice (as ``semseg_tpu/cli/test.py``
+    does); with ``--exact`` the exact engine. Each writes its engine's map."""
+    from semseg_tpu.config import cfg
+    from semseg_tpu.data import TestDataset
+    from semseg_tpu.utils import colorEncode
+
+    img_path = tmp_path / "room.jpg"
+    Image.fromarray(np.random.RandomState(8).randint(0, 256, (45, 61, 3), np.uint8)).save(img_path)
+    built = []
+    real_build = eval_cli.build_engines
+
+    def spy(*args, **kw):
+        engines = real_build(*args, **kw)
+        built.extend(engines)
+        return engines
+
+    monkeypatch.setattr(test_cli, "build_engines", spy)
+    out_dir = tmp_path / "out"
+    test_cli.main(["--imgs", str(img_path), "--cfg", CFG, "--device", "cpu",
+                   *(["--exact"] if exact else []),
+                   "DIR", str(reference_pth), "TEST.result", str(out_dir), *SMALL])
+    (engine,) = built
+    assert engine.exact == exact and engine.fetch_dtype == torch.float32
+
+    c = cfg.clone()
+    c.merge_from_file(CFG)
+    c.merge_from_list(SMALL)
+    item = TestDataset([{"fpath_img": str(img_path)}], c.DATASET, device_preprocess=not exact,
+                       bucket_step=None if exact else c.TPU.eval_bucket_step)[0]
+    assert all(lvl.dtype == (np.float32 if exact else np.uint8) for lvl in item["img_data"])
+    pred = engine.predict(item["img_data"], (45, 61))
+    png = np.asarray(Image.open(out_dir / "room.png"))
+    np.testing.assert_array_equal(png[:, 61:], colorEncode(pred, mode="RGB").astype(np.uint8))
+
+
+def _val_set(root, shapes, seed):
+    rng = np.random.RandomState(seed)
     records = []
-    for i, (h, w) in enumerate([(48, 64), (56, 40)]):
-        Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(tmp_path / f"{i}.jpg")
-        Image.fromarray(rng.randint(0, 151, (h, w), np.uint8), mode="L").save(tmp_path / f"{i}.png")
+    for i, (h, w) in enumerate(shapes):
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(root / f"{i}.jpg")
+        Image.fromarray(rng.randint(0, 151, (h, w), np.uint8), mode="L").save(root / f"{i}.png")
         records.append({"fpath_img": f"{i}.jpg", "fpath_segm": f"{i}.png",
                         "height": h, "width": w})
-    odgt = tmp_path / "val.odgt"
+    odgt = root / "val.odgt"
     odgt.write_text("".join(json.dumps(r) + "\n" for r in records))
+    return ["DATASET.root_dataset", str(root), "DATASET.list_val", str(odgt)]
+
+
+def test_eval_cli_exact(reference_pth, tmp_path):
+    data = _val_set(tmp_path, [(48, 64), (56, 40)], seed=5)
     miou, acc, iou, raw = eval_cli.main([
-        "--cfg", CFG, "--exact", "--device", "cpu", "DIR", str(reference_pth),
-        "DATASET.root_dataset", str(tmp_path), "DATASET.list_val", str(odgt), *SMALL,
+        "--cfg", CFG, "--exact", "--device", "cpu", "DIR", str(reference_pth), *data, *SMALL,
     ])
     assert 0.0 <= miou <= 1.0 and 0.0 <= acc <= 1.0 and iou.shape == (150,)
     assert raw["pix_count"] > 0
-
-
-def test_eval_cli_requires_exact():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_cli.main(["--cfg", CFG, "--device", "cpu"])

@@ -6,7 +6,9 @@ numpy image goes through both. A narrow model (one block per stage, planes
 8/16/32/64, fc_dim 256) in float32 is held to atol 1e-4 on probabilities. The
 full-width resnet50dilated + ppm_deepsup at 64x64 uses the tolerance of the
 JAX package's own full-width parity tests (atol 2e-2 on probabilities,
-argmax agreement > 0.999): random weights are scale-brittle.
+argmax agreement > 0.999): random weights are scale-brittle. The logits
+call (``seg_size=None``), with and without per-sample ``valid_hw`` on a
+padded batch, is held to atol 1e-4 on the logits.
 """
 
 import numpy as np
@@ -104,6 +106,41 @@ def test_narrow_model_matches_jax(hw):
     ref = np.asarray(model.apply(variables, jnp.asarray(img), seg_size=hw, train=False))
     out = _run_port(narrow_port_model(variables), img, hw)
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("extents", [None, [[64, 80], [41, 57], [9, 13]]],
+                         ids=["dense", "valid_hw"])
+def test_narrow_logits_match_jax(extents):
+    """model(img, valid_hw=...) against model.apply(..., seg_size=None,
+    valid_hw=...): f32 logits at decoder resolution, on a padded batch."""
+    model, variables = narrow_jax_model()
+    rng = np.random.RandomState(6)
+    img = rng.randn(3, 64, 80, 3).astype(np.float32)
+    vhw = None if extents is None else np.array(extents, np.int32)
+    if vhw is not None:
+        for n, (h, w) in enumerate(vhw):  # zero padding, as the engines feed it
+            img[n, h:], img[n, :, w:] = 0.0, 0.0
+    ref = np.asarray(model.apply(variables, jnp.asarray(img), seg_size=None, train=False,
+                                 valid_hw=None if vhw is None else jnp.asarray(vhw)))
+    port = narrow_port_model(variables)
+    with torch.no_grad():
+        out = port(torch.from_numpy(img).permute(0, 3, 1, 2),
+                   valid_hw=None if vhw is None else torch.from_numpy(vhw))
+    assert out.dtype == torch.float32 and out.shape == (3, 150, 8, 10)
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, atol=1e-4, rtol=0)
+
+
+def test_conv5_stays_channels_last_at_batch_above_one():
+    """The pyramid pool takes conv5's NHWC view without a copy, so the
+    encoder must keep channels_last from the stem down at N > 1."""
+    _, variables = narrow_jax_model()
+    port = narrow_port_model(variables)
+    img = torch.from_numpy(np.random.RandomState(7).randn(4, 48, 64, 3).astype(np.float32))
+    with torch.no_grad():
+        feats = port.encoder(img.permute(0, 3, 1, 2))
+    for f in feats:
+        assert f.is_contiguous(memory_format=torch.channels_last)
+    assert feats[-1].permute(0, 2, 3, 1).is_contiguous()
 
 
 def test_dilation_spec_matches_jax():

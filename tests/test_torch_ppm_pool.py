@@ -4,10 +4,11 @@ On the CPU the port's ``pyramid_pool`` runs its plain version; it is held
 against JAX ``pyramid_pool(..., interpret=True)`` and against four
 ``ops.adaptive_avg_pool2d`` calls. float32 within atol 1e-5 (summation
 order); bfloat16 compared in float32 within rtol 8e-3, one bf16 ulp, since
-each side rounds its f32 mean once. The CUDA kernel is held against the
-plain version on the card by the test marked ``cuda``; JAX is imported
-inside the tests that use it, so that this file also runs where only
-PyTorch is installed (see README).
+each side rounds its f32 mean once. The pad-aware form (``valid_hw``) is
+held against JAX ``adaptive_avg_pool2d_valid`` at the four scales. The CUDA
+kernel is held against the plain version on the card by the tests marked
+``cuda``; JAX is imported inside the tests that use it, so that this file
+also runs where only PyTorch is installed (see README).
 """
 
 import numpy as np
@@ -61,10 +62,40 @@ def test_bf16_matches_pallas(shape):
                                    rtol=8e-3, atol=0)
 
 
+# Per-sample extents: full, odd, 1x1, and one that covers a single row.
+VALID_CASES = [
+    ((4, 13, 17, 64), [[13, 17], [7, 9], [1, 1], [1, 17]]),
+    ((2, 38, 50, 32), [[38, 50], [25, 33]]),
+    ((3, 8, 10, 16), [[8, 10], [5, 10], [8, 3]]),
+]
+
+
+@pytest.mark.parametrize("shape,extents", VALID_CASES,
+                         ids=["x".join(map(str, shape)) for shape, _ in VALID_CASES])
+def test_valid_form_matches_jax(shape, extents):
+    jnp, jops, _ = _jax()
+    x = _input(shape, seed=3)
+    v = np.array(extents, np.int32)
+    outs = ppm_pool.pyramid_pool(torch.from_numpy(x), valid_hw=torch.from_numpy(v))
+    for s, o in zip(SCALES, outs):
+        assert o.shape == (shape[0], s, s, shape[3]) and o.is_contiguous()
+        ref = jops.adaptive_avg_pool2d_valid(jnp.asarray(x), s, jnp.asarray(v))
+        np.testing.assert_allclose(o.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
+
+
+def test_valid_form_at_full_extent_is_the_dense_form():
+    x = torch.from_numpy(_input((2, 13, 17, 32), seed=4))
+    full = torch.tensor([[13, 17], [13, 17]], dtype=torch.int32)
+    for o, d in zip(ppm_pool.pyramid_pool(x, valid_hw=full), ppm_pool.pyramid_pool(x)):
+        torch.testing.assert_close(o, d, atol=1e-6, rtol=0)
+
+
 def test_cpu_call_does_not_count_a_launch():
-    before = ppm_pool.LAUNCHES
-    ppm_pool.pyramid_pool(torch.from_numpy(_input((1, 5, 7, 16))))
-    assert ppm_pool.LAUNCHES == before
+    before = ppm_pool.LAUNCHES, ppm_pool.VALID_LAUNCHES
+    x = torch.from_numpy(_input((1, 5, 7, 16)))
+    ppm_pool.pyramid_pool(x)
+    ppm_pool.pyramid_pool(x, valid_hw=torch.tensor([[3, 4]], dtype=torch.int32))
+    assert (ppm_pool.LAUNCHES, ppm_pool.VALID_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("device,scales,match", [
@@ -93,3 +124,36 @@ def test_kernel_matches_plain_on_card(shape, dtype):
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=0, rtol=8e-3)
     for o, p in zip(outs, ppm_pool.pyramid_pool_plain(x)):
         torch.testing.assert_close(o.float(), p.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,extents", [
+    ((8, 75, 100, 2048), [[75, 100], [75, 99], [37, 51], [1, 1], [60, 100], [75, 13],
+                          [49, 67], [2, 3]]),
+    ((2, 13, 17, 256), [[13, 17], [7, 9]]),
+], ids=["8x75x100x2048", "2x13x17x256"])
+def test_valid_kernel_matches_plain_on_card(shape, extents, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    x = torch.from_numpy(_input(shape, seed=5)).to("cuda", dtype)
+    v = torch.tensor(extents, dtype=torch.int32, device="cuda")
+    before = ppm_pool.VALID_LAUNCHES
+    outs = ppm_pool.pyramid_pool(x, valid_hw=v)
+    torch.cuda.synchronize()
+    assert ppm_pool.VALID_LAUNCHES == before + 1
+    # bf16: one bf16 ulp, or the f32 summation-order difference where a
+    # mean cancels to nearly 0 (its relative error is then unbounded).
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=8e-3)
+    for o, p in zip(outs, ppm_pool.pyramid_pool_plain(x, valid_hw=v)):
+        torch.testing.assert_close(o.float(), p.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_valid_kernel_rejects_host_extents():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x = torch.zeros(2, 4, 4, 8, device="cuda")
+    with pytest.raises(ValueError, match="valid_hw"):
+        ppm_pool.pyramid_pool(x, valid_hw=torch.tensor([[4, 4], [2, 2]], dtype=torch.int32))
