@@ -7,11 +7,23 @@ From the root of a checkout, on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA. In order:
 
 1. device: the card's name and power limit;
-2. build: the CUDA kernels from ``semseg_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build: the CUDA kernels from ``semseg_tpu_torch/csrc`` (nvcc, sm_90a),
+   with each kernel's registers and spills from ``-Xptxas -v`` (a spill
+   fails the run);
 3. each kernel against its plain PyTorch version at the main path's shapes:
    ``pyramid_pool`` dense, and its pad-aware form (``valid_hw``) on batches
-   with mixed per-sample extents, in float32 and bfloat16;
-4. kernel and plain times (CUDA events, 10 warm-up runs, median of 50);
+   with mixed per-sample extents, in float32 and bfloat16, and at shapes
+   that take its other paths (C not a multiple of 8, a map whose address is
+   not 16-byte aligned, 1-row and 1-column segments, empty extents); two
+   launches on the same input must agree bit for bit;
+4. kernel and plain times (CUDA events, 10 warm-up runs, median of 50), each
+   with the L2 cache warm and cold (a 256 MB buffer read between launches,
+   outside the events), beside the bound (the bytes each call must read
+   over 3.35 TB/s) and the device time of the kernel's two passes under
+   ``torch.profiler``; for the dense form, as context, four
+   ``F.adaptive_avg_pool2d`` calls and one ``torch.sum`` over the same map. With ``--compare PATH`` it also times a library built
+   from another ``ppm_pool.cu`` (an earlier version) in turns with this
+   one: other, this, this, other;
 5. the main paths at full width: the flagship resnet50dilated + ppm_deepsup
    with seeded random weights saved as a reference ``.pth`` pair, through
    ``cli.test`` (3 images, bucketed per-image engine), ``cli.eval --exact``
@@ -21,7 +33,8 @@ PyTorch built for CUDA. In order:
    ``cli.test`` and once per scheduled chunk in the default ``cli.eval``,
    the dense form once per level in ``cli.eval --exact``;
 6. steady state of the batched and exact engines on those images, and a
-   ``torch.profiler`` breakdown of one batched pass;
+   ``torch.profiler`` breakdown of one batched pass, with the device time
+   of the ``pyramid_pool`` kernels in it;
 7. float32 with TF32 off: card against CPU (exact engine); the batched
    engine's device metrics against host metrics of its maps, and its maps,
    packed and unpacked, against the per-image bucketed engine.
@@ -45,21 +58,42 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(HERE, "config", "ade20k-resnet50dilated-ppm_deepsup.yaml")
 OUT_DIR = os.path.join(HERE, "build")  # the profiler table goes here
 MAIN_SHAPE = (1, 75, 100, 2048)  # conv5 of a 600-px level
+# The main path's shapes, then the kernel's other paths: C not a multiple
+# of 8 (scalar loads), and a 13 x 13 map, whose segments include 1-row and
+# 1-column ones.
 CHECK_SHAPES = [
     ((1, 75, 100, 2048), "float32"), ((1, 75, 100, 2048), "bfloat16"),
     ((1, 38, 50, 2048), "float32"), ((1, 38, 50, 2048), "bfloat16"),
     ((2, 13, 17, 256), "float32"), ((1, 1, 1, 2048), "bfloat16"),
     ((1, 75, 100, 720), "bfloat16"),
+    ((1, 75, 100, 250), "float32"), ((1, 75, 100, 250), "bfloat16"),
+    ((1, 13, 13, 2048), "float32"), ((1, 13, 13, 2048), "bfloat16"),
 ]
+# A map whose data_ptr is one element past a 16-byte boundary.
+UNALIGNED_SHAPE = (1, 75, 100, 2048)
 # Pad-aware form: a batch-8 canvas with mixed extents (full, odd, 1x1,
-# full height or width only), and smaller canvases of the main path.
+# full height or width only), smaller canvases of the main path, odd C,
+# and empty and one-row / one-column extents.
 VALID_SHAPE = (8, 75, 100, 2048)
 VALID_CHECKS = [
     (VALID_SHAPE, [[75, 100], [75, 99], [37, 51], [1, 1], [60, 100], [75, 13],
                    [49, 67], [2, 3]]),
     ((4, 38, 50, 2048), [[38, 50], [33, 41], [38, 7], [19, 50]]),
     ((2, 13, 17, 256), [[13, 17], [7, 9]]),
+    ((2, 75, 100, 250), [[75, 100], [13, 61]]),
+    ((3, 13, 13, 2048), [[0, 0], [1, 13], [13, 1]]),
 ]
+# Timed cases (name, shape, extents or None for the dense form): the exact
+# path's largest level, chip_smoke's batch-8 canvas, and the batched
+# path's two canvases at full extent.
+TIME_CASES = [
+    ("dense", MAIN_SHAPE, None),
+    ("valid", VALID_SHAPE, VALID_CHECKS[0][1]),
+    ("valid", (4, 75, 100, 2048), [[75, 100]] * 4),
+    ("valid", (4, 38, 50, 2048), [[38, 50]] * 4),
+]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FLUSH_BYTES = 256 * 2**20
 TEST_IMAGES = [(480, 640), (375, 500), (600, 451)]  # (H, W)
 # Landscape images share buckets, portrait ones share buckets of 3 tasks
 # (a padded last chunk) into whose spare slot the levels of the 510x390
@@ -105,18 +139,38 @@ def _valid_tolerance(dtype):
     return dict(_tolerance(dtype), atol=1e-5)
 
 
+def _check_one(ppm_pool, torch, x, valid_hw, tolerance) -> float:
+    """Kernel against plain version on ``x``; two launches must agree bit
+    for bit. Returns the largest absolute difference."""
+    outs = ppm_pool.pyramid_pool(x, valid_hw=valid_hw)
+    again = ppm_pool.pyramid_pool(x, valid_hw=valid_hw)
+    refs = ppm_pool.pyramid_pool_plain(x, valid_hw=valid_hw)
+    err = 0.0
+    for o, o2, r in zip(outs, again, refs):
+        if not torch.equal(o, o2):
+            raise RuntimeError(f"pyramid_pool {tuple(x.shape)}: two launches differ")
+        torch.testing.assert_close(o.float(), r.float(), **tolerance)
+        err = max(err, (o.float() - r.float()).abs().max().item())
+    return err
+
+
 def check_kernel(ppm_pool, torch) -> float:
     max_err = 0.0
     g = torch.Generator(device="cuda").manual_seed(0)
     for shape, dt in CHECK_SHAPES:
         dtype = getattr(torch, dt)
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
-        outs = ppm_pool.pyramid_pool(x)
-        refs = ppm_pool.pyramid_pool_plain(x)
-        for o, r in zip(outs, refs):
-            torch.testing.assert_close(o.float(), r.float(), **_tolerance(dtype))
-            max_err = max(max_err, (o.float() - r.float()).abs().max().item())
-        print(f"[check] pyramid_pool {shape} {dt}: ok", flush=True)
+        max_err = max(max_err, _check_one(ppm_pool, torch, x, None, _tolerance(dtype)))
+        print(f"[check] pyramid_pool {shape} {dt}: ok, two launches bit-equal", flush=True)
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        numel = UNALIGNED_SHAPE[0] * UNALIGNED_SHAPE[1] * UNALIGNED_SHAPE[2] * UNALIGNED_SHAPE[3]
+        x = torch.randn(numel + 1, generator=g, device="cuda").to(dtype)[1:].view(UNALIGNED_SHAPE)
+        if x.data_ptr() % 16 == 0:
+            raise RuntimeError("the unaligned check's map is 16-byte aligned")
+        max_err = max(max_err, _check_one(ppm_pool, torch, x, None, _tolerance(dtype)))
+        print(f"[check] pyramid_pool {UNALIGNED_SHAPE} {dt}, data_ptr % 16 = "
+              f"{x.data_ptr() % 16}: ok, two launches bit-equal", flush=True)
     torch.cuda.synchronize()
     return max_err
 
@@ -129,22 +183,23 @@ def check_valid_kernel(ppm_pool, torch) -> float:
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
             x = torch.randn(shape, generator=g, device="cuda").to(dtype)
-            outs = ppm_pool.pyramid_pool(x, valid_hw=v)
-            refs = ppm_pool.pyramid_pool_plain(x, valid_hw=v)
-            for o, r in zip(outs, refs):
-                torch.testing.assert_close(o.float(), r.float(), **_valid_tolerance(dtype))
-                max_err = max(max_err, (o.float() - r.float()).abs().max().item())
-            print(f"[check] pyramid_pool valid_hw {shape} {dt} extents {extents}: ok",
-                  flush=True)
+            max_err = max(max_err, _check_one(ppm_pool, torch, x, v, _valid_tolerance(dtype)))
+            print(f"[check] pyramid_pool valid_hw {shape} {dt} extents {extents}: ok, "
+                  f"two launches bit-equal", flush=True)
     torch.cuda.synchronize()
     return max_err
 
 
-def _median_ms(fn, torch) -> float:
+def _median_ms(fn, torch, flush=None) -> float:
+    """Median of 50 timed calls after 10 warm-ups. With ``flush`` (a 256 MB
+    float32 tensor) the buffer is read before each call, outside the
+    events, so the L2 holds none of the call's inputs (cold)."""
     for _ in range(10):
         fn()
     times = []
     for _ in range(50):
+        if flush is not None:
+            flush.sum()
         # Keep the card busy while the host enqueues, so each pair of events
         # brackets device time only.
         torch.cuda._sleep(2_000_000)
@@ -157,24 +212,118 @@ def _median_ms(fn, torch) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def time_kernel(ppm_pool, torch, card: str) -> dict:
+def bound_ms(shape, extents, element_size):
+    """Least time for one call on an H100 SXM, and what sets it: the bytes
+    it must move (the valid region of the map read once, 50 means per
+    channel written once, the extents) over 3.35 TB/s, against about one
+    f32 add per element read at 67 TFLOP/s."""
+    n, h, w, c = shape
+    pixels = n * h * w if extents is None else sum(eh * ew for eh, ew in extents)
+    moved = (pixels + 50 * n) * c * element_size + (0 if extents is None else 8 * n)
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = pixels * c / 67e12 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _pass_us(ppm_pool, torch, x, v, flush):
+    """Mean device time (us) of each of the kernel's two passes over 10
+    cold calls, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            flush.sum()
+            ppm_pool.launch(ppm_pool._lib(), x, v)
+        torch.cuda.synchronize()
+    return {name: e.self_device_time_total / e.count
+            for e in prof.key_averages()
+            for name in ("ppm_cells_kernel", "ppm_combine_kernel") if name in e.key}
+
+
+def time_kernel(ppm_pool, torch, card: str, compare=None) -> dict:
+    """Phase 4: per timed case and dtype, (kernel ms warm, cold, plain ms,
+    bound ms, bound_by)."""
+    import torch.nn.functional as F
+
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    this = ppm_pool._lib()
+    tiny = torch.zeros(1, device="cuda")
+    floor = _median_ms(tiny.zero_, torch)
+    print(f"[time] context: a one-element fill between the same events takes {floor:.4f} ms "
+          f"(the launch-and-event floor of every time below; card: {card})", flush=True)
     out = {}
-    v = torch.tensor(VALID_CHECKS[0][1], dtype=torch.int32, device="cuda")
-    for dt in ("bfloat16", "float32"):
-        dtype = getattr(torch, dt)
-        x = torch.randn(MAIN_SHAPE, device="cuda").to(dtype)
-        k_ms = _median_ms(lambda: ppm_pool.pyramid_pool(x), torch)
-        p_ms = _median_ms(lambda: ppm_pool.pyramid_pool_plain(x), torch)
-        out[("dense", dt)] = (k_ms, p_ms)
-        print(f"[time] pyramid_pool {MAIN_SHAPE} {dt}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms (median of 50; card: {card})", flush=True)
-        xv = torch.randn(VALID_SHAPE, device="cuda").to(dtype)
-        k_ms = _median_ms(lambda: ppm_pool.pyramid_pool(xv, valid_hw=v), torch)
-        p_ms = _median_ms(lambda: ppm_pool.pyramid_pool_plain(xv, valid_hw=v), torch)
-        out[("valid", dt)] = (k_ms, p_ms)
-        print(f"[time] pyramid_pool valid_hw {VALID_SHAPE} {dt}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms (median of 50; card: {card})", flush=True)
+    for name, shape, extents in TIME_CASES:
+        v = None if extents is None else torch.tensor(extents, dtype=torch.int32, device="cuda")
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            x = torch.randn(shape, device="cuda").to(dtype)
+            warm = _median_ms(lambda: ppm_pool.pyramid_pool(x, valid_hw=v), torch)
+            cold = _median_ms(lambda: ppm_pool.pyramid_pool(x, valid_hw=v), torch, flush)
+            plain = _median_ms(lambda: ppm_pool.pyramid_pool_plain(x, valid_hw=v), torch)
+            bound, bound_by = bound_ms(shape, extents, x.element_size())
+            passes = _pass_us(ppm_pool, torch, x, v, flush)
+            out[(name, shape, dt)] = (warm, cold, plain, bound, bound_by)
+            form = "dense" if v is None else f"valid_hw {'mixed' if len(set(map(tuple, extents))) > 1 else 'full'} extents"
+            print(f"[time] pyramid_pool {form} {shape} {dt}: kernel {warm:.4f} ms warm, "
+                  f"{cold:.4f} ms cold; bound {bound:.4f} ms ({bound_by}), share of bound "
+                  f"{bound / cold:.3f} cold, {bound / warm:.3f} warm; passes under the profiler "
+                  f"(cold, us; pass 2 starts early and waits for pass 1): " + ", ".join(f"{k} {t:.2f}" for k, t in passes.items()) +
+                  f"; plain {plain:.4f} ms (median of 50; card: {card})", flush=True)
+            if v is None:
+                # No single PyTorch call computes the four grids; the closest
+                # arrangement, as context only: an NCHW f32 copy and four pools.
+                def four_pools():
+                    xn = x.permute(0, 3, 1, 2).contiguous().float()
+                    return [F.adaptive_avg_pool2d(xn, s) for s in ppm_pool.SCALES]
+                lib_ms = _median_ms(four_pools, torch, flush)
+                sum_ms = _median_ms(lambda: x.sum(dtype=torch.float32), torch, flush)
+                print(f"[time] context, no single PyTorch call: NCHW f32 copy + four "
+                      f"F.adaptive_avg_pool2d {shape} {dt}: {lib_ms:.4f} ms cold; one read of "
+                      f"the same bytes by torch.sum: {sum_ms:.4f} ms cold", flush=True)
+            if compare is not None:
+                runs = []
+                for who, lib in (("other", compare), ("this", this), ("this", this),
+                                 ("other", compare)):
+                    def call():
+                        return ppm_pool.launch(lib, x, v)
+                    runs.append(f"{who} {_median_ms(call, torch, flush):.4f} cold / "
+                                f"{_median_ms(call, torch):.4f} warm")
+                print(f"[compare] {form} {shape} {dt} (ms): " + "; ".join(runs) +
+                      f" (card: {card})", flush=True)
     return out
+
+
+def print_build(ppm_pool):
+    """Registers and spills of every kernel from the build's ptxas output;
+    raises on a spill."""
+    import re
+
+    from semseg_tpu_torch.ops.kernels._build import build_log
+
+    log = build_log("ppm_pool", ppm_pool.SOURCES)
+    kernel, spills, kernels = None, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel, spills = m.group(1), None
+            continue
+        if "spill stores" in line:
+            spills = [int(b) for b in re.findall(r"(\d+) bytes spill", line)]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            if spills is None:
+                raise RuntimeError(f"no spill line in the ptxas output for {kernel}")
+            kernels += 1
+            short = re.sub(r"^_ZN\w*?_ppm_pool_cu_\w{8}\d+", "", kernel)[:60]
+            smem = re.search(r"(\d+) bytes smem", line)
+            print(f"[build] ptxas: {short}: {m.group(1)} registers, "
+                  f"{smem.group(1) if smem else 0} bytes shared memory, spill stores/loads "
+                  f"{spills[0]}/{spills[1]} bytes", flush=True)
+            if any(spills):
+                raise RuntimeError(f"{kernel} spills registers: {spills}")
+            kernel = None
+    if kernels == 0:
+        raise RuntimeError("the build log holds no ptxas report")
 
 
 def _write_images(root, shapes, rng, labels=False):
@@ -209,7 +358,7 @@ def _write_val_set(root, shapes, seed):
 
 
 def _cfg(*opts):
-    from semseg_tpu.config import cfg as default_cfg
+    from semseg_tpu_torch.config import cfg as default_cfg
 
     cfg = default_cfg.clone()
     cfg.merge_from_file(CFG)
@@ -220,7 +369,7 @@ def _cfg(*opts):
 
 def _val_items(cfg, val_dir, odgt):
     """(pyramids, labels) of a val set as the default eval CLI loads them."""
-    from semseg_tpu.data import ValDataset
+    from semseg_tpu_torch.data import ValDataset
 
     ds = ValDataset(val_dir, odgt, cfg.DATASET, device_preprocess=True,
                     bucket_step=cfg.TPU.eval_bucket_step)
@@ -337,7 +486,7 @@ def main_path(work, torch, ppm_pool):
 def steady_state(ckpt, val_dir, odgt, torch, card):
     """Seconds per image of the batched and exact engines once cuDNN has
     seen the shapes, and a profile of one batched pass."""
-    from semseg_tpu.data import ValDataset
+    from semseg_tpu_torch.data import ValDataset
     from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
     from semseg_tpu_torch.cli.eval import build_engines
 
@@ -409,6 +558,12 @@ def profile_batched(fn, torch, card):
     print(f"[profile] batched pass under torch.profiler: wall {wall_ms:.1f} ms, device "
           f"kernel time {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f} (card: {card})",
           flush=True)
+    pool = [e for e in kernels if "ppm_cells_kernel" in e.key or "ppm_combine_kernel" in e.key]
+    pool_ms = sum(dev_ms(e) for e in pool)
+    print(f"[profile] pyramid_pool in the batched pass: {pool_ms:.3f} ms of device time "
+          f"({pool_ms / busy_ms:.2%}) over " + ", ".join(
+              f"{e.count} x {'ppm_cells_kernel' if 'ppm_cells' in e.key else 'ppm_combine_kernel'}"
+              for e in pool) + f" (card: {card})", flush=True)
     for title, rows in (("kernels", kernels), ("operators", ops)):
         for e in sorted(rows, key=dev_ms, reverse=True)[:10]:
             print(f"[profile] {title}: {dev_ms(e):8.3f} ms {dev_ms(e) / busy_ms:6.1%} "
@@ -419,7 +574,7 @@ def profile_batched(fn, torch, card):
 def card_vs_cpu(ckpt, torch):
     import numpy as np
 
-    from semseg_tpu.data.dataset import PyramidBuilder
+    from semseg_tpu_torch.data import PyramidBuilder
     from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
     from semseg_tpu_torch.cli.eval import build_engines
 
@@ -454,7 +609,7 @@ def batched_f32(ckpt, work, torch):
     engine."""
     import numpy as np
 
-    from semseg_tpu.utils import accuracy, intersectionAndUnion
+    from semseg_tpu_torch.utils import accuracy, intersectionAndUnion
     from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
     from semseg_tpu_torch.cli.eval import build_engines
 
@@ -499,8 +654,16 @@ def batched_f32(ckpt, work, torch):
         raise RuntimeError(f"batched maps disagree with the per-image engine: {failed}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--compare", default=None, metavar="PATH",
+                        help="also time a library built from this ppm_pool.cu against "
+                             "the checkout's, in turns (phase 4)")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -522,10 +685,17 @@ def main() -> int:
     tic = time.perf_counter()
     ppm_pool._lib()
     print(f"[build] ppm_pool.cu built/loaded in {time.perf_counter() - tic:.2f} s", flush=True)
+    print_build(ppm_pool)
+    compare = None
+    if args.compare:
+        from semseg_tpu_torch.ops.kernels._build import load_library
+
+        compare = ppm_pool.declare(load_library("ppm_pool_compare", [os.path.abspath(args.compare)]))
+        print(f"[build] {args.compare} built/loaded for the comparison", flush=True)
 
     max_err = check_kernel(ppm_pool, torch)
     valid_err = check_valid_kernel(ppm_pool, torch)
-    times = time_kernel(ppm_pool, torch, card)
+    times = time_kernel(ppm_pool, torch, card, compare)
 
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
@@ -534,15 +704,20 @@ def main() -> int:
         card_vs_cpu(ckpt, torch)
         batched_f32(ckpt, work, torch)
 
+    def numbers(case):
+        # bf16 at the first timed case of the form; no single PyTorch call
+        # computes the four grids, so there is no library time.
+        warm, cold, plain, bound, bound_by = times[(*case[:2], "bfloat16")]
+        return dict(ms=warm, cold_ms=cold, plain_ms=plain, bound_ms=bound,
+                    bound_by=bound_by, library_ms=None)
+
     entry = dict(route="cuda", source="semseg_tpu_torch/csrc/ppm_pool.cu")
     print(json.dumps({"kernels": [
         {"name": "pyramid_pool", **entry, "replaces": "semseg_tpu/ops/pallas/ppm_pool.py:40",
-         "launches": launches["dense"], "max_abs_err": max_err,
-         "ms": times[("dense", "bfloat16")][0], "plain_ms": times[("dense", "bfloat16")][1]},
+         "launches": launches["dense"], "max_abs_err": max_err, **numbers(TIME_CASES[0])},
         {"name": "pyramid_pool_valid", **entry,
          "replaces": "semseg_tpu/ops/resize_dynamic.py:70",
-         "launches": launches["valid"], "max_abs_err": valid_err,
-         "ms": times[("valid", "bfloat16")][0], "plain_ms": times[("valid", "bfloat16")][1]},
+         "launches": launches["valid"], "max_abs_err": valid_err, **numbers(TIME_CASES[1])},
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

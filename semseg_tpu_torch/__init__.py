@@ -2,13 +2,14 @@
 
 Module for module it mirrors the JAX package, which stays the reference:
 ``ops`` (with the hand-written CUDA kernels under ``ops/kernels`` and
-``csrc``), ``models``, ``checkpoint``, ``engine`` and ``cli``. The
-framework-neutral parts (``semseg_tpu.config``, ``semseg_tpu.data``,
-``semseg_tpu.utils``) are imported from the JAX package, not copied; none of
-them imports JAX.
+``csrc``), ``models``, ``checkpoint``, ``engine`` and ``cli``. The port
+imports neither ``jax`` nor anything of ``semseg_tpu``: it keeps its own
+copies of the framework-neutral modules it needs (``config``, ``data``,
+``utils``), under the JAX package's names.
 
-So far the port covers exact multi-scale inference of
-resnet50dilated + ppm_deepsup (``cli.test``, ``cli.eval --exact``).
+So far the port covers multi-scale inference of resnet50dilated +
+ppm_deepsup: ``cli.test``, ``cli.eval --exact`` and the default batched
+``cli.eval``.
 """
 
 __version__ = "0.1.0"

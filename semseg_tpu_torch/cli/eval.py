@@ -17,26 +17,25 @@ import time
 
 import numpy as np
 
-from semseg_tpu.config import cfg as _default_cfg
-from semseg_tpu.data import EvalLoader, ValDataset
-from semseg_tpu.data.dataset import _effective_lattice
-from semseg_tpu.utils import (
-    AverageMeter,
-    accuracy,
-    colorEncode,
-    intersectionAndUnion,
-    load_class_names,
-    setup_logger,
-)
-from semseg_tpu.utils.metrics import miou_from_meters
-
 from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
+from semseg_tpu_torch.config import cfg as _default_cfg
+from semseg_tpu_torch.data import EvalLoader, ValDataset
+from semseg_tpu_torch.data.dataset import _effective_lattice
 from semseg_tpu_torch.engine import (
     BatchedInferenceEngine,
     InferenceEngine,
     output_stride_for,
 )
 from semseg_tpu_torch.models import ModelBuilder
+from semseg_tpu_torch.utils import (
+    AverageMeter,
+    accuracy,
+    colorEncode,
+    intersectionAndUnion,
+    load_class_names,
+    miou_from_meters,
+    setup_logger,
+)
 
 CHUNK = 32  # images per batched-engine call
 

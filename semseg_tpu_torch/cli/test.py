@@ -14,12 +14,11 @@ import os
 
 import numpy as np
 
-from semseg_tpu.config import cfg as _default_cfg
-from semseg_tpu.data import EvalLoader, TestDataset
-from semseg_tpu.utils import colorEncode, find_recursive, load_class_names, setup_logger
-
 from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
 from semseg_tpu_torch.cli.eval import build_engines
+from semseg_tpu_torch.config import cfg as _default_cfg
+from semseg_tpu_torch.data import EvalLoader, TestDataset
+from semseg_tpu_torch.utils import colorEncode, find_recursive, load_class_names, setup_logger
 
 
 def visualize_result(item, pred, save_dir, logger):

@@ -1,0 +1,162 @@
+"""ADE20K eval/test datasets (host-side, NHWC): the port's own copy of what
+the eval and test paths use from ``semseg_tpu/data/dataset.py``.
+
+* ``ValDataset`` / ``TestDataset`` — per-image multi-scale pyramids
+  (reference ``dataset.py:206-296``): for each short-side in ``imgSizes``,
+  the image is **resized** (not padded — a small aspect distortion, exactly
+  like the reference, :232-236) to dimensions rounded up to
+  ``padding_constant``, or to the eval bucket lattice.
+
+Images decode and resize with PIL only. The JAX package's native libjpeg
+decode and resizer give the same pixels (it checks them bit for bit against
+PIL), so the pyramids are equal; ``TrainDataset`` waits for the training
+slice.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import List, Optional
+
+import numpy as np
+from PIL import Image
+
+from .transforms import (
+    img_transform,
+    imresize,
+    round2nearest_multiple,
+    scale_for,
+    segm_transform,
+)
+
+
+def _effective_lattice(bucket_step, padding_constant: int) -> int:
+    """Smallest lattice >= bucket_step that keeps padding_constant alignment."""
+    if not bucket_step:
+        return padding_constant
+    if bucket_step % padding_constant == 0:
+        return bucket_step
+    return ((bucket_step - 1) // padding_constant + 1) * padding_constant
+
+
+def _decode_rgb(path: str) -> np.ndarray:
+    """Decode an image file to an RGB uint8 (H, W, 3) array."""
+    return np.asarray(Image.open(path).convert("RGB"), np.uint8)
+
+
+def parse_odgt(odgt, max_sample=-1, start_idx=-1, end_idx=-1) -> List[dict]:
+    """Parse a .odgt manifest (one JSON record per line, dataset.py:38-51)."""
+    if isinstance(odgt, list):
+        samples = list(odgt)
+    else:
+        with open(odgt) as f:
+            samples = [json.loads(line.rstrip()) for line in f if line.strip()]
+    if max_sample > 0:
+        samples = samples[:max_sample]
+    if start_idx >= 0 and end_idx >= 0:
+        samples = samples[start_idx:end_idx]
+    assert samples, "empty sample list"
+    return samples
+
+
+class PyramidBuilder:
+    """In-memory multi-scale pyramid transforms — no manifest required.
+
+    The dataset classes inherit this; a caller that segments images outside
+    any manifest constructs it directly from ``cfg.DATASET``.
+    """
+
+    def __init__(self, opt, *, bucket_step: Optional[int] = None):
+        self.imgSizes = opt.imgSizes
+        self.imgMaxSize = opt.imgMaxSize
+        self.padding_constant = opt.padding_constant
+        # Eval-time shape bucketing BY RESIZE: pyramid levels are resized
+        # directly to dims rounded up to this lattice (instead of the
+        # reference's padding_constant, dataset.py:232-236), which bounds the
+        # distinct shapes without a padded canvas: zero pad bleeds through
+        # the dilated-conv receptive field and the PPM global pooling, while
+        # a slightly coarser aspect distortion is the approximation the
+        # reference already makes.
+        self.eval_bucket_step = bucket_step
+
+    def multi_scale_pyramid(self, img, *, raw: bool = False) -> List[np.ndarray]:
+        """Per-scale resized copies, each (1, H, W, 3).
+
+        ``img``: RGB uint8 array or PIL image.
+        ``raw=False``: normalized float32 (reference parity).
+        ``raw=True``: uint8 — normalization happens on the device inside the
+        inference engine (4x smaller host→device transfer).
+        """
+        arr = np.asarray(img, dtype=np.uint8)
+        ori_height, ori_width = arr.shape[:2]
+        sizes = (
+            self.imgSizes
+            if isinstance(self.imgSizes, (list, tuple))
+            else (self.imgSizes,)
+        )
+        # The lattice must preserve the architecture's alignment constraint:
+        # UPerNet/HRNet configs pad to 32 (padding_constant), so a finer
+        # requested bucket_step rounds up to it.
+        rounding = _effective_lattice(self.eval_bucket_step, self.padding_constant)
+        out = []
+        for short_size in sizes:
+            scale = scale_for(ori_height, ori_width, short_size, self.imgMaxSize)
+            target_h = round2nearest_multiple(int(ori_height * scale), rounding)
+            target_w = round2nearest_multiple(int(ori_width * scale), rounding)
+            resized = np.asarray(
+                imresize(Image.fromarray(arr), (target_w, target_h), interp="bilinear"),
+                dtype=np.uint8,
+            )
+            out.append(resized[None] if raw else img_transform(resized)[None])
+        return out
+
+
+class BaseDataset(PyramidBuilder):
+    def __init__(self, odgt, opt, *, bucket_step: Optional[int] = None, **kwargs):
+        super().__init__(opt, bucket_step=bucket_step)
+        self.list_sample = parse_odgt(odgt, **kwargs)
+        self.num_sample = len(self.list_sample)
+
+
+class ValDataset(BaseDataset):
+    def __init__(self, root_dataset, odgt, opt, *, device_preprocess=False, **kwargs):
+        super().__init__(odgt, opt, **kwargs)
+        self.root_dataset = root_dataset
+        self.device_preprocess = device_preprocess
+
+    def __len__(self):
+        return self.num_sample
+
+    def __getitem__(self, index) -> dict:
+        rec = self.list_sample[index]
+        img = _decode_rgb(os.path.join(self.root_dataset, rec["fpath_img"]))
+        segm = Image.open(os.path.join(self.root_dataset, rec["fpath_segm"]))
+        assert segm.mode == "L"
+        assert img.shape[:2] == (segm.size[1], segm.size[0])
+        return {
+            "img_ori": img,
+            "img_data": self.multi_scale_pyramid(img, raw=self.device_preprocess),
+            "seg_label": segm_transform(segm)[None],
+            "info": rec["fpath_img"],
+        }
+
+
+class TestDataset(BaseDataset):
+    __test__ = False  # not a pytest class
+
+    def __init__(self, odgt, opt, *, device_preprocess=False, **kwargs):
+        super().__init__(odgt, opt, **kwargs)
+        self.device_preprocess = device_preprocess
+
+    def __len__(self):
+        return self.num_sample
+
+    def __getitem__(self, index) -> dict:
+        rec = self.list_sample[index]
+        img = _decode_rgb(rec["fpath_img"])
+        return {
+            "img_ori": img,
+            "img_data": self.multi_scale_pyramid(img, raw=self.device_preprocess),
+            "info": rec["fpath_img"],
+        }

@@ -31,9 +31,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from semseg_tpu.data.dataset import _effective_lattice
-from semseg_tpu.data.transforms import MEAN, STD, round2nearest_multiple as _round_up
-
+from semseg_tpu_torch.data.dataset import _effective_lattice
+from semseg_tpu_torch.data.transforms import MEAN, STD, round2nearest_multiple as _round_up
 from semseg_tpu_torch.ops.preproc import normalize_u8_masked
 from semseg_tpu_torch.ops.resize import resize_bilinear
 from semseg_tpu_torch.ops.resize_dynamic import resize_matrix

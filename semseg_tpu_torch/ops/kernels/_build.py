@@ -26,6 +26,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "semseg_tpu_torch_
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel, in the build log
 )
 
 _lock = threading.Lock()
@@ -47,7 +48,8 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str, sources) -> str:
-    """Where the library for ``sources`` and the current flags lives."""
+    """Where the library for ``sources`` and the current flags lives. A
+    source is a file name under ``csrc`` or an absolute path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         with open(os.path.join(CSRC_DIR, src), "rb") as f:
@@ -73,6 +75,13 @@ def load_library(name: str, sources) -> ctypes.CDLL:
         return lib
 
 
+def build_log(name: str, sources) -> str:
+    """What nvcc printed when it built ``lib<name>.so`` from ``sources``
+    (with ``-Xptxas -v``: each kernel's registers and spills)."""
+    with open(library_path(name, sources) + ".log") as f:
+        return f.read()
+
+
 def _compile(so: str, sources) -> None:
     os.makedirs(os.path.dirname(so), exist_ok=True)
     # Build under a temporary name and rename into place, so a second
@@ -88,6 +97,8 @@ def _compile(so: str, sources) -> None:
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
+        with open(so + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):

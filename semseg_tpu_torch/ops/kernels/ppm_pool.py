@@ -4,9 +4,12 @@ Replaces ``semseg_tpu/ops/pallas/ppm_pool.py::pyramid_pool``: all the
 adaptive-average-pool grids (1, 2, 3, 6) of one NHWC map from a single read
 of the map, 50 bin means per channel, summed in f32 and rounded once to the
 input dtype. The kernel (``csrc/ppm_pool.cu``) is bound by bytes: it reads
-the map once where four ``adaptive_avg_pool2d`` calls read it four times. It
-splits the rows into bands so that a batch-1 map fills the card's SMs, and
-sums the bands in a second small pass without atomics.
+the map once, with 16-byte loads, where four ``adaptive_avg_pool2d`` calls
+read it four times. It cuts the map at the bin boundaries into at most
+11 x 11 cells, each inside or outside every bin, sums the cells in many
+small blocks, and gives each bin its cells in a second small pass without
+atomics. A map whose C is not a multiple of 16 bytes' worth of elements,
+or whose address is not 16-byte aligned, is read with scalar loads.
 
 With ``valid_hw`` it is the pad-aware form the batched engines need: each
 sample is pooled over its own valid extent inside the padded canvas, which
@@ -60,13 +63,42 @@ def _lib():
     stream as c_void_p, so that ctypes does not cut them to 32 bits)."""
     from semseg_tpu_torch.ops.kernels._build import load_library
 
-    lib = load_library("ppm_pool", SOURCES)
+    return declare(load_library("ppm_pool", SOURCES))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C signatures of a library built from a ``ppm_pool.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ppm_pool_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     lib.ppm_pool_launch.restype = ci
     lib.ppm_pool_scratch_floats.argtypes = [ci] * 4
     lib.ppm_pool_scratch_floats.restype = ctypes.c_longlong
     return lib
+
+
+def launch(lib: ctypes.CDLL, x: torch.Tensor,
+           valid_hw: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """One launch of ``lib``'s kernel on checked CUDA inputs, uncounted.
+
+    ``pyramid_pool`` calls it with the built library; a timing run may call
+    it with a library built from another version of the source.
+    """
+    n, h, w, c = x.shape
+    outs = [torch.empty((n, s, s, c), dtype=x.dtype, device=x.device) for s in SCALES]
+    scratch = torch.empty(
+        int(lib.ppm_pool_scratch_floats(n, h, w, c)),
+        dtype=torch.float32, device=x.device,
+    )
+    with torch.cuda.device(x.device):
+        err = lib.ppm_pool_launch(
+            x.data_ptr(), *(o.data_ptr() for o in outs), scratch.data_ptr(),
+            None if valid_hw is None else valid_hw.data_ptr(),
+            n, h, w, c, _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ppm_pool kernel launch failed: cudaError {err}")
+    return tuple(outs)
 
 
 def pyramid_pool(
@@ -112,23 +144,9 @@ def pyramid_pool(
             f"on {x.device}; got {tuple(valid_hw.shape)} {valid_hw.dtype} on "
             f"{valid_hw.device}"
         )
-    lib = _lib()
-    outs = [torch.empty((n, s, s, c), dtype=x.dtype, device=x.device) for s in SCALES]
-    scratch = torch.empty(
-        int(lib.ppm_pool_scratch_floats(n, h, w, c)),
-        dtype=torch.float32, device=x.device,
-    )
-    with torch.cuda.device(x.device):
-        err = lib.ppm_pool_launch(
-            x.data_ptr(), *(o.data_ptr() for o in outs), scratch.data_ptr(),
-            None if valid_hw is None else valid_hw.data_ptr(),
-            n, h, w, c, _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"ppm_pool kernel launch failed: cudaError {err}")
+    outs = launch(_lib(), x, valid_hw)
     if valid_hw is None:
         LAUNCHES += 1
     else:
         VALID_LAUNCHES += 1
-    return tuple(outs)
+    return outs

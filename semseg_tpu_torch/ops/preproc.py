@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from semseg_tpu.data.transforms import MEAN, STD
+from semseg_tpu_torch.data.transforms import MEAN, STD
 
 
 def valid_mask(shape, h, w, *, batch_dims: int = 0, device=None) -> torch.Tensor:

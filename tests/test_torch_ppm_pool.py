@@ -111,7 +111,8 @@ def test_rejects_unsupported_input(device, scales, match):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(1, 75, 100, 2048), (2, 13, 17, 256), (1, 1, 1, 2048),
-                                   (1, 75, 100, 720)], ids=lambda s: "x".join(map(str, s)))
+                                   (1, 75, 100, 720), (1, 75, 100, 250), (1, 13, 13, 2048)],
+                         ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain_on_card(shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -132,7 +133,9 @@ def test_kernel_matches_plain_on_card(shape, dtype):
     ((8, 75, 100, 2048), [[75, 100], [75, 99], [37, 51], [1, 1], [60, 100], [75, 13],
                           [49, 67], [2, 3]]),
     ((2, 13, 17, 256), [[13, 17], [7, 9]]),
-], ids=["8x75x100x2048", "2x13x17x256"])
+    ((2, 75, 100, 250), [[75, 100], [13, 61]]),
+    ((3, 13, 13, 2048), [[0, 0], [1, 13], [13, 1]]),
+], ids=["8x75x100x2048", "2x13x17x256", "2x75x100x250", "3x13x13x2048-empty-1row-1col"])
 def test_valid_kernel_matches_plain_on_card(shape, extents, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -157,3 +160,34 @@ def test_valid_kernel_rejects_host_extents():
     x = torch.zeros(2, 4, 4, 8, device="cuda")
     with pytest.raises(ValueError, match="valid_hw"):
         ppm_pool.pyramid_pool(x, valid_hw=torch.tensor([[4, 4], [2, 2]], dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_accepts_unaligned_map(dtype):
+    """A map whose data_ptr is not 16-byte aligned takes the scalar loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    shape = (1, 75, 100, 2048)
+    flat = torch.from_numpy(_input((int(np.prod(shape)) + 1,), seed=6)).to("cuda", dtype)
+    x = flat[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=0, rtol=8e-3)
+    for o, p in zip(ppm_pool.pyramid_pool(x), ppm_pool.pyramid_pool_plain(x)):
+        torch.testing.assert_close(o.float(), p.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("extents", [None, [[75, 100], [37, 51], [0, 0], [1, 100]]],
+                         ids=["dense", "valid"])
+def test_kernel_repeats_bit_for_bit(extents, dtype):
+    """No float atomics: two launches on the same input give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    n = 1 if extents is None else len(extents)
+    x = torch.from_numpy(_input((n, 75, 100, 2048), seed=7)).to("cuda", getattr(torch, dtype))
+    v = None if extents is None else torch.tensor(extents, dtype=torch.int32, device="cuda")
+    for a, b in zip(ppm_pool.pyramid_pool(x, valid_hw=v), ppm_pool.pyramid_pool(x, valid_hw=v)):
+        assert torch.equal(a, b)
