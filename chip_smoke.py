@@ -21,23 +21,35 @@ PyTorch built for CUDA. In order:
    outside the events), beside the bound (the bytes each call must read
    over 3.35 TB/s) and the device time of the kernel's two passes under
    ``torch.profiler``; for the dense form, as context, four
-   ``F.adaptive_avg_pool2d`` calls and one ``torch.sum`` over the same map. With ``--compare PATH`` it also times a library built
+   ``F.adaptive_avg_pool2d`` calls and one ``torch.sum`` over the same map;
+   the zoo's shapes (C = 512, UPerNet's small conv5 maps) among them. With
+   ``--compare PATH`` it also times a library built
    from another ``ppm_pool.cu`` (an earlier version) in turns with this
    one: other, this, this, other;
 5. the main paths at full width: the flagship resnet50dilated + ppm_deepsup
    with seeded random weights saved as a reference ``.pth`` pair, through
-   ``cli.test`` (3 images, bucketed per-image engine), ``cli.eval --exact``
-   and the default ``cli.eval`` (batched engine: batch 4, packed buckets,
-   on-device metrics) over the same 9 labelled images, all 5 scales. The
-   launch counts are read per path: the pad-aware form once per level in
-   ``cli.test`` and once per scheduled chunk in the default ``cli.eval``,
-   the dense form once per level in ``cli.eval --exact``;
-6. steady state of the batched and exact engines on those images, and a
-   ``torch.profiler`` breakdown of one batched pass, with the device time
-   of the ``pyramid_pool`` kernels in it;
-7. float32 with TF32 off: card against CPU (exact engine); the batched
-   engine's device metrics against host metrics of its maps, and its maps,
-   packed and unpacked, against the per-image bucketed engine.
+   ``cli.test`` (3 images, bucketed per-image engine), ``cli.eval --exact``,
+   the default ``cli.eval`` (batched engine: batch 4, packed buckets,
+   on-device metrics) and ``cli.eval --device-pyramid`` (levels derived on
+   the card from the originals) over the same 9 labelled images, all 5
+   scales; then every other shipped config (the zoo) through the default
+   ``cli.eval`` (3 labelled images) and ``cli.test`` (1 image) at full
+   width and its own scales. The launch counts are read per path: the
+   pad-aware form once per level in ``cli.test`` and once per scheduled
+   chunk in the default and device-pyramid ``cli.eval`` (none in the C1
+   configs), the dense form once per level in ``cli.eval --exact``; the
+   three flagship eval paths must count the same labelled pixels;
+6. steady state of the batched and exact engines on those images, and at
+   bench.py's headline settings (batch 8, packed, step 8) the
+   device-pyramid engine beside the batched engine, with the host PIL
+   pyramid's time; a ``torch.profiler`` breakdown of one batched and one
+   device-pyramid pass, with the device time of the ``pyramid_pool``
+   kernels and of the level derivation in it;
+7. float32 with TF32 off: card against CPU (exact engine), for the flagship
+   and for every zoo config; the batched engine's device metrics against
+   host metrics of its maps, and its maps, packed and unpacked, against
+   the per-image bucketed engine; the levels derived on the card against
+   PIL; the device-pyramid metrics against the host-pyramid engine's.
 
 It ends with a JSON line of per-kernel results, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}`` as the last
@@ -68,6 +80,8 @@ CHECK_SHAPES = [
     ((1, 75, 100, 720), "bfloat16"),
     ((1, 75, 100, 250), "float32"), ((1, 75, 100, 250), "bfloat16"),
     ((1, 13, 13, 2048), "float32"), ((1, 13, 13, 2048), "bfloat16"),
+    # resnet18dilated's conv5 (C = 512) on a batch of 4 levels.
+    ((4, 75, 100, 512), "float32"), ((4, 75, 100, 512), "bfloat16"),
 ]
 # A map whose data_ptr is one element past a 16-byte boundary.
 UNALIGNED_SHAPE = (1, 75, 100, 2048)
@@ -82,6 +96,11 @@ VALID_CHECKS = [
     ((2, 13, 17, 256), [[13, 17], [7, 9]]),
     ((2, 75, 100, 250), [[75, 100], [13, 61]]),
     ((3, 13, 13, 2048), [[0, 0], [1, 13], [13, 1]]),
+    # The zoo's shapes: resnet18dilated's conv5 (C = 512), and UPerNet's
+    # conv5 at output stride 32 (600 and 320 px levels).
+    ((4, 75, 100, 512), [[75, 100], [60, 81], [37, 51], [1, 1]]),
+    ((4, 19, 25, 2048), [[19, 25], [15, 19], [10, 13], [3, 2]]),
+    ((4, 10, 13, 2048), [[10, 13], [8, 9], [5, 7], [1, 1]]),
 ]
 # Timed cases (name, shape, extents or None for the dense form): the exact
 # path's largest level, chip_smoke's batch-8 canvas, and the batched
@@ -91,6 +110,8 @@ TIME_CASES = [
     ("valid", VALID_SHAPE, VALID_CHECKS[0][1]),
     ("valid", (4, 75, 100, 2048), [[75, 100]] * 4),
     ("valid", (4, 38, 50, 2048), [[38, 50]] * 4),
+    ("valid", (4, 75, 100, 512), [[75, 100]] * 4),
+    ("valid", (4, 19, 25, 2048), [[19, 25]] * 4),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FLUSH_BYTES = 256 * 2**20
@@ -111,6 +132,27 @@ F32_IMAGES = [(375, 500), (333, 500), (512, 384), (510, 390)]
 # or wrong extents would drop agreement toward chance (1/150).
 AGREE = 0.999
 AGREE_FOLDED = 0.95
+# The zoo phase: every other shipped config, full width, its own scales.
+ZOO_CONFIGS = ["ade20k-resnet18dilated-ppm_deepsup.yaml",
+               "ade20k-resnet101dilated-ppm_deepsup.yaml",
+               "ade20k-mobilenetv2dilated-c1_deepsup.yaml", "ade20k-hrnetv2.yaml",
+               "ade20k-resnet50-upernet.yaml", "ade20k-resnet101-upernet.yaml"]
+ZOO_IMAGES = [(375, 500), (512, 384), (333, 500)]
+POOLED_DECODERS = ("ppm", "ppm_deepsup", "upernet", "upernet_lite")
+# Levels derived on the card against PIL (tests/test_device_pyramid.py:53-55):
+# PIL rounds its filter coefficients and its output to 8 bits.
+PIL_MAX, PIL_MEAN = 1.3, 0.5
+# Device-pyramid metrics against the host-pyramid batched engine, per image
+# as a share of its labelled pixels (tests/test_device_pyramid.py:140-145).
+DP_ACC, DP_INTER, DP_UNION = 0.02, 0.02, 0.04
+# The zoo's card against the CPU, f32: each level's logits within ZOO_REL of
+# their largest magnitude (cuDNN and the CPU sum in other orders; a wrong
+# weight, slot or layout moves them by O(1)), and argmax agreement of the
+# exact engine's averaged scores. Random full-depth weights give logits from
+# ~1e-2 (mobilenetv2) to ~1e8 (hrnetv2), so a probability difference is no
+# scale-free test: resnet101dilated gave max |dp| 2.247e-03 at argmax
+# agreement 1.0 on an H100; max |dp| is printed without a limit.
+ZOO_REL, ZOO_AGREE = 1e-3, 0.999
 
 
 def _card_line() -> str:
@@ -357,11 +399,11 @@ def _write_val_set(root, shapes, seed):
     return odgt
 
 
-def _cfg(*opts):
+def _cfg(*opts, path=CFG):
     from semseg_tpu_torch.config import cfg as default_cfg
 
     cfg = default_cfg.clone()
-    cfg.merge_from_file(CFG)
+    cfg.merge_from_file(path)
     if opts:
         cfg.merge_from_list(list(opts))
     return cfg
@@ -377,27 +419,60 @@ def _val_items(cfg, val_dir, odgt):
     return [it["img_data"] for it in items], [it["seg_label"][0] for it in items]
 
 
-def expected_chunks(cfg, val_dir, odgt):
+def _plan_engine(cls, cfg, batch=4, **kw):
+    """An engine without a model, on the CPU, set up as ``build_engines``
+    sets up the eval CLI's, to count the chunks it schedules."""
+    from semseg_tpu_torch.data.dataset import _effective_lattice
+    from semseg_tpu_torch.engine import output_stride_for
+
+    return cls(None, device="cpu", num_class=cfg.DATASET.num_class,
+               output_stride=output_stride_for(cfg),
+               bucket_step=_effective_lattice(cfg.TPU.eval_bucket_step,
+                                              cfg.DATASET.padding_constant),
+               padding_constant=cfg.DATASET.padding_constant, batch_size=batch,
+               pack_buckets=True, **kw)
+
+
+def expected_chunks(cfg, val_dir, odgt, batch=4, *, flagship=True):
     """Chunks the batched engine schedules for the val set (one call of
     <= 32 images), counted from its own schedule."""
     from semseg_tpu_torch.engine import BatchedInferenceEngine
 
     pyrs, labels = _val_items(cfg, val_dir, odgt)
-    eng = BatchedInferenceEngine(None, device="cpu", batch_size=4, pack_buckets=True,
-                                 bucket_step=cfg.TPU.eval_bucket_step)
+    eng = _plan_engine(BatchedInferenceEngine, cfg, batch)
     windows = eng._canvas_windows([lab.shape for lab in labels], range(len(pyrs)))
     chunks = 0
     for window in windows:
         groups = eng._group_by_bucket([pyrs[i] if i in window else [] for i in range(len(pyrs))])
         fill = sorted((k, len(t), len({x[0] for x in t})) for k, t in groups.items())
         folded = sum(eng._bucket_key(h, w) != k for k, t in groups.items() for *_, h, w in t)
-        print(f"[main] window of {len(window)} images: buckets (key, tasks, images) {fill}; "
-              f"{folded} tasks packed into a larger bucket", flush=True)
-        shared = [f for f in fill if f[2] > 1]
-        padded = [f for f in fill if f[1] % 4]
-        if not shared or not padded:
-            raise RuntimeError("the eval images must share a bucket and pad a last chunk")
+        if flagship:
+            print(f"[main] window of {len(window)} images: buckets (key, tasks, images) {fill}; "
+                  f"{folded} tasks packed into a larger bucket", flush=True)
+            shared = [f for f in fill if f[2] > 1]
+            padded = [f for f in fill if f[1] % batch]
+            if not shared or not padded:
+                raise RuntimeError("the eval images must share a bucket and pad a last chunk")
         chunks += len(eng._schedule(groups))
+    return chunks
+
+
+def expected_dp_chunks(cfg, shapes, batch=4, *, quiet=False):
+    """Chunks the device-pyramid engine schedules for originals of these
+    (H, W) shapes: its windows, ``level_plan`` and ``_pack_groups``."""
+    from semseg_tpu_torch.engine import DevicePyramidEngine
+
+    eng = _plan_engine(DevicePyramidEngine, cfg, batch, img_sizes=cfg.DATASET.imgSizes,
+                       img_max_size=cfg.DATASET.imgMaxSize)
+    plans = [eng.level_plan(h, w) for h, w in shapes]
+    chunks = 0
+    for window in eng._windows(shapes):
+        groups = eng._level_groups(window, plans)
+        chunks += len(eng._schedule(groups))
+        if not quiet:
+            fill = sorted((k, len(t)) for k, t in groups.items())
+            print(f"[main] device-pyramid window of {len(window)} images (batch {batch}): "
+                  f"buckets (key, tasks) {fill}", flush=True)
     return chunks
 
 
@@ -405,6 +480,7 @@ def _run_path(name, fn, ppm_pool, torch):
     """Drive one path with both launch counts set to 0; returns (result,
     seconds, dense launches, valid launches)."""
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ppm_pool.LAUNCHES = 0
     ppm_pool.VALID_LAUNCHES = 0
     tic = time.perf_counter()
@@ -412,7 +488,8 @@ def _run_path(name, fn, ppm_pool, torch):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - tic
     dense, valid = ppm_pool.LAUNCHES, ppm_pool.VALID_LAUNCHES
-    print(f"[main] {name}: pyramid_pool launches dense {dense}, valid_hw {valid}", flush=True)
+    print(f"[main] {name}: pyramid_pool launches dense {dense}, valid_hw {valid}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return result, seconds, dense, valid
 
 
@@ -439,6 +516,7 @@ def main_path(work, torch, ppm_pool):
     odgt = _write_val_set(val_dir, EVAL_IMAGES, seed=1)
     data = ["DATASET.root_dataset", val_dir, "DATASET.list_val", odgt]
     chunks = expected_chunks(cfg, val_dir, odgt)
+    dp_chunks = expected_dp_chunks(cfg, EVAL_IMAGES)
     launches = {"dense": 0, "valid": 0}
 
     _, test_s, dense, valid = _run_path("cli.test", lambda: test_cli.main(
@@ -459,6 +537,7 @@ def main_path(work, torch, ppm_pool):
     for name, flags, want in (
         ("cli.eval --exact", ["--exact"], (len(EVAL_IMAGES) * n_scales, 0)),
         ("cli.eval", [], (0, chunks)),
+        ("cli.eval --device-pyramid", ["--device-pyramid"], (0, dp_chunks)),
     ):
         (miou, acc, _, raw), wall_s, dense, valid = _run_path(name, lambda: eval_cli.main(
             ["--cfg", CFG, *flags, "DIR", ckpt, *data]), ppm_pool, torch)
@@ -471,22 +550,108 @@ def main_path(work, torch, ppm_pool):
         launches["valid"] += valid
         results[name] = raw
         if valid:
-            print(f"[main] {name}: {valid} valid_hw launches = {chunks} chunks scheduled "
+            print(f"[main] {name}: {valid} valid_hw launches = {want[1]} chunks scheduled "
                   f"(batch 4, packed)", flush=True)
         print(f"[main] {name}: mIoU {miou:.4f}, accuracy {acc * 100:.2f}% (random weights), "
               f"{wall_s / len(EVAL_IMAGES):.4f} s/image wall (first run, model build and "
               f"cuDNN set-up included), {raw['seconds_per_image']:.4f} s/image in the engine",
               flush=True)
-    exact, batched = results["cli.eval --exact"], results["cli.eval"]
-    if exact["pix_count"] != batched["pix_count"]:
-        raise RuntimeError("the two eval paths counted different labelled pixels")
+    pix = {name: raw["pix_count"] for name, raw in results.items()}
+    if len(set(pix.values())) != 1:
+        raise RuntimeError(f"the eval paths counted different labelled pixels: {pix}")
+    print(f"[main] all three eval paths counted {pix['cli.eval']:.0f} labelled pixels", flush=True)
     return ckpt, val_dir, odgt, launches
 
 
+def _save_random_pth(cfg, ckpt, torch):
+    """A seeded random model of ``cfg`` saved as a reference-format .pth
+    pair under ``ckpt``, named as cfg.VAL.checkpoint resolves it."""
+    from semseg_tpu_torch.models import ModelBuilder
+
+    os.makedirs(ckpt, exist_ok=True)
+    model = ModelBuilder.build_model(cfg, device="cpu", seed=0)
+    for name, module in (("encoder", model.encoder), ("decoder", model.decoder)):
+        torch.save(module.state_dict(), os.path.join(ckpt, f"{name}_{cfg.VAL.checkpoint}"))
+
+
+def zoo_phase(work, torch, ppm_pool):
+    """Every other shipped config through the default ``cli.eval`` (3
+    labelled images) and ``cli.test`` (1 image), full width, its own scales
+    and lattice. The pad-aware pool runs once per scheduled chunk and per
+    level in PPM and UPerNet configs, and never in C1 configs."""
+    import numpy as np
+
+    from semseg_tpu_torch.cli import eval as eval_cli, test as test_cli
+
+    val_dir = os.path.join(work, "zoo_val")
+    odgt = _write_val_set(val_dir, ZOO_IMAGES, seed=4)
+    test_dir = os.path.join(work, "zoo_test")
+    os.makedirs(test_dir)
+    _write_images(test_dir, ZOO_IMAGES[:1], np.random.RandomState(5))
+    data = ["DATASET.root_dataset", val_dir, "DATASET.list_val", odgt]
+    launches, ckpts = {"dense": 0, "valid": 0}, {}
+    for name in ZOO_CONFIGS:
+        path = os.path.join(HERE, "config", name)
+        cfg = _cfg(path=path)
+        ckpt = os.path.join(work, "zoo_ckpt", name[:-5])
+        tic = time.perf_counter()
+        _save_random_pth(cfg, ckpt, torch)
+        save_s = time.perf_counter() - tic
+        ckpts[name] = ckpt
+        pooled = cfg.MODEL.arch_decoder in POOLED_DECODERS
+        n_scales = len(cfg.DATASET.imgSizes)
+        want_eval = (0, expected_chunks(cfg, val_dir, odgt, flagship=False) if pooled else 0)
+        want_test = (0, n_scales if pooled else 0)
+        tag = f"{cfg.MODEL.arch_encoder} + {cfg.MODEL.arch_decoder}"
+        (miou, acc, _, raw), eval_s, dense, valid = _run_path(
+            f"zoo {tag}: cli.eval", lambda: eval_cli.main(
+                ["--cfg", path, "DIR", ckpt, *data]), ppm_pool, torch)
+        if (dense, valid) != want_eval:
+            raise RuntimeError(f"{name} cli.eval launched dense {dense} / valid {valid} times, "
+                               f"expected {want_eval[0]} / {want_eval[1]}")
+        if not (np.isfinite(miou) and 0.0 <= miou <= 1.0 and 0.0 <= acc <= 1.0
+                and raw["pix_count"] > 0):
+            raise RuntimeError(f"{name}: metrics out of range: mIoU {miou}, acc {acc}")
+        launches["valid"] += valid
+        out_dir = os.path.join(work, "zoo_result", name[:-5])
+        _, test_s, dense, valid = _run_path(f"zoo {tag}: cli.test", lambda: test_cli.main(
+            ["--imgs", test_dir, "--cfg", path, "DIR", ckpt, "TEST.checkpoint",
+             cfg.VAL.checkpoint, "TEST.result", out_dir]), ppm_pool, torch)
+        if (dense, valid) != want_test:
+            raise RuntimeError(f"{name} cli.test launched dense {dense} / valid {valid} times, "
+                               f"expected {want_test[0]} / {want_test[1]}")
+        if len([p for p in os.listdir(out_dir) if p.endswith(".png")]) != 1:
+            raise RuntimeError(f"{name}: cli.test wrote no PNG")
+        launches["valid"] += valid
+        print(f"[zoo] {tag} ({name}, padding_constant {cfg.DATASET.padding_constant}, output "
+              f"stride {cfg.DATASET.segm_downsampling_rate}, {n_scales} scales): cli.eval "
+              f"{raw['pix_count']:.0f} labelled pixels, mIoU {miou:.4f}, pool launches "
+              f"{want_eval[1]} (= chunks scheduled); cli.test pool launches {want_test[1]}; wall "
+              f"{eval_s:.1f} s eval + {test_s:.1f} s test (first runs, model build included), "
+              f"{save_s:.1f} s to build and save the random .pth pair", flush=True)
+    return launches, ckpts
+
+
+def _median_pass(fn, torch, n_images):
+    """Seconds per image: median of 3 synchronised passes after a warm-up."""
+    fn()
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - tic) / n_images)
+    return sorted(runs)[1]
+
+
 def steady_state(ckpt, val_dir, odgt, torch, card):
-    """Seconds per image of the batched and exact engines once cuDNN has
-    seen the shapes, and a profile of one batched pass."""
-    from semseg_tpu_torch.data import ValDataset
+    """Seconds per image of the engines once cuDNN has seen the shapes: the
+    batched (batch 4) and exact engines as the CLIs run them, then at
+    bench.py's headline settings (batch 8, packed, step 8) the
+    device-pyramid engine beside the batched engine; a profile of one
+    batched and one device-pyramid pass."""
+    from semseg_tpu_torch.data import PyramidBuilder, ValDataset
     from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
     from semseg_tpu_torch.cli.eval import build_engines
 
@@ -498,38 +663,57 @@ def steady_state(ckpt, val_dir, odgt, torch, card):
     exact = build_engines(cfg, 1, exact=True, device="cuda")[0]
     ds = ValDataset(val_dir, odgt, cfg.DATASET)
     host_pyrs = [ds[i]["img_data"] for i in range(len(ds))]
-
-    def run_batched():
-        batched.batched_metrics(pyrs, labels)
+    oris = [ds[i]["img_ori"] for i in range(len(ds))]
+    batched8 = build_engines(cfg, 1, batch=8, fetch_dtype="bfloat16", pack_buckets=True,
+                             device="cuda")[0]
+    dp8 = build_engines(cfg, 1, batch=8, fetch_dtype="bfloat16", pack_buckets=True,
+                        device_pyramid=True, device="cuda")[0]
 
     def run_exact():
         for pyr, lab in zip(host_pyrs, labels):
             exact.predict(pyr, lab.shape)
 
+    runs = {
+        "batched": lambda: batched.batched_metrics(pyrs, labels),
+        "exact": run_exact,
+        "batched, batch 8": lambda: batched8.batched_metrics(pyrs, labels),
+        "device-pyramid, batch 8": lambda: dp8.batched_metrics_from_originals(oris, labels),
+    }
     times = {}
-    for name, fn in (("batched", run_batched), ("exact", run_exact)):
-        fn()  # warm-up
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            tic = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - tic) / len(pyrs))
-        times[name] = sorted(runs)[1]
+    for name, fn in runs.items():
+        times[name] = _median_pass(fn, torch, len(pyrs))
         print(f"[steady] {name} engine: {times[name]:.4f} s/image (median of 3 passes over "
-              f"{len(pyrs)} images, 5 scales, bf16; card: {card})", flush=True)
-    busy_ms = profile_batched(run_batched, torch, card)
-    if busy_ms:
-        wall_ms = times["batched"] * len(pyrs) * 1e3
-        print(f"[profile] batched pass without the profiler: {wall_ms:.1f} ms wall, so device "
-              f"idle share about {max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
+              f"{len(pyrs)} images, 5 scales, bf16, packed, step 8; card: {card})", flush=True)
+    n_tasks = sum(len(p) for p in pyrs)
+    for name, chunks in (("batched", expected_chunks(cfg, val_dir, odgt, 8, flagship=False)),
+                         ("device-pyramid", expected_dp_chunks(cfg, EVAL_IMAGES, 8, quiet=True))):
+        print(f"[steady] {name} engine at batch 8: {chunks} chunks, {chunks * 8} slots for "
+              f"{n_tasks} level tasks ({1 - n_tasks / (chunks * 8):.2f} of the slots repeat a "
+              f"task to fill a bucket's last chunk)", flush=True)
+    # The batched engines take host pyramids the loader built beforehand;
+    # the device-pyramid engine builds its levels inside its time.
+    builder = PyramidBuilder(cfg.DATASET, bucket_step=cfg.TPU.eval_bucket_step)
+    tic = time.perf_counter()
+    for ori in oris:
+        builder.multi_scale_pyramid(ori, raw=True)
+    host_s = (time.perf_counter() - tic) / len(oris)
+    print(f"[steady] host PIL pyramid (5 uint8 levels on the step-8 lattice), one thread of "
+          f"this machine's CPU: {host_s:.4f} s/image (outside the batched engines' times "
+          f"above; the eval CLI builds it in 5 loader threads)", flush=True)
+    for name, key in (("batched", "batched"), ("batched-8", "batched, batch 8"),
+                      ("device-pyramid", "device-pyramid, batch 8")):
+        busy_ms = profile_pass(name, runs[key], torch, card)
+        if busy_ms:
+            wall_ms = times[key] * len(pyrs) * 1e3
+            print(f"[profile] {name} pass without the profiler: {wall_ms:.1f} ms wall, so "
+                  f"device idle share about {max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
     return times
 
 
-def profile_batched(fn, torch, card):
-    """Device busy share, the top kernels and the top operators (by the
-    device time of the kernels they launch) of one batched pass."""
+def profile_pass(name, fn, torch, card):
+    """Device busy share, the pool's and the level derivation's device
+    time, the top kernels and the top operators (by the device time of the
+    kernels they launch) of one pass."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -541,7 +725,8 @@ def profile_batched(fn, torch, card):
         wall_ms = (time.perf_counter() - tic) * 1e3
     events = prof.key_averages()
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
+    table = "chip_smoke_profile.txt" if name == "batched" else f"chip_smoke_profile_{name}.txt"
+    with open(os.path.join(OUT_DIR, table), "w") as f:
         f.write(f"card: {card}\n")
         f.write(events.table(sort_by="self_device_time_total", row_limit=80, max_name_column_width=120))
 
@@ -552,21 +737,29 @@ def profile_batched(fn, torch, card):
     ops = [e for e in events if e.device_type == DeviceType.CPU and e.key.startswith("aten::")]
     busy_ms = sum(dev_ms(e) for e in kernels)
     if busy_ms <= 0:
-        print("[profile] batched pass: the profiler recorded no device time; "
+        print(f"[profile] {name} pass: the profiler recorded no device time; "
               "device busy share not measured", flush=True)
         return
-    print(f"[profile] batched pass under torch.profiler: wall {wall_ms:.1f} ms, device "
+    print(f"[profile] {name} pass under torch.profiler: wall {wall_ms:.1f} ms, device "
           f"kernel time {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f} (card: {card})",
           flush=True)
     pool = [e for e in kernels if "ppm_cells_kernel" in e.key or "ppm_combine_kernel" in e.key]
     pool_ms = sum(dev_ms(e) for e in pool)
-    print(f"[profile] pyramid_pool in the batched pass: {pool_ms:.3f} ms of device time "
+    print(f"[profile] pyramid_pool in the {name} pass: {pool_ms:.3f} ms of device time "
           f"({pool_ms / busy_ms:.2%}) over " + ", ".join(
               f"{e.count} x {'ppm_cells_kernel' if 'ppm_cells' in e.key else 'ppm_combine_kernel'}"
               for e in pool) + f" (card: {card})", flush=True)
+    levels = [e for e in events if e.key == "semseg::levels" and e.device_type == DeviceType.CPU]
+    if levels:
+        # The kernels launched inside the engine's _levels range.
+        lv_ms = sum(e.device_time_total for e in levels) / 1e3
+        print(f"[profile] level derivation (semseg::levels: resize matrices, two f32 "
+              f"products, normalize, mask) in the {name} pass: {lv_ms:.3f} ms of device "
+              f"time ({lv_ms / busy_ms:.2%}) over {sum(e.count for e in levels)} chunks "
+              f"(card: {card})", flush=True)
     for title, rows in (("kernels", kernels), ("operators", ops)):
         for e in sorted(rows, key=dev_ms, reverse=True)[:10]:
-            print(f"[profile] {title}: {dev_ms(e):8.3f} ms {dev_ms(e) / busy_ms:6.1%} "
+            print(f"[profile] {name} {title}: {dev_ms(e):8.3f} ms {dev_ms(e) / busy_ms:6.1%} "
                   f"{e.count:5d} calls  {e.key[:100]}", flush=True)
     return busy_ms
 
@@ -654,6 +847,110 @@ def batched_f32(ckpt, work, torch):
         raise RuntimeError(f"batched maps disagree with the per-image engine: {failed}")
 
 
+def levels_vs_pil(work, torch):
+    """f32, TF32 off: the device-pyramid engine's levels, derived on the
+    card, against PIL's resize of the same originals to the same shapes."""
+    import numpy as np
+    from PIL import Image
+
+    from semseg_tpu_torch.data.transforms import MEAN, STD
+    from semseg_tpu_torch.engine import DevicePyramidEngine
+
+    cfg = _cfg()
+    eng = _plan_engine(DevicePyramidEngine, cfg, img_sizes=cfg.DATASET.imgSizes,
+                       img_max_size=cfg.DATASET.imgMaxSize)
+    rng = np.random.RandomState(6)
+    worst = (0.0, 0.0)
+    for h, w in F32_IMAGES:
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 255 // (h + w)], -1)
+        ori = np.clip(base + rng.randint(-40, 41, (h, w, 3)), 0, 255).astype(np.uint8)
+        canvas = torch.zeros((1, -(-h // 64) * 64, -(-w // 64) * 64, 3), dtype=torch.uint8)
+        canvas[0, :h, :w] = torch.from_numpy(ori)
+        canvas = canvas.cuda()
+        ohw = torch.tensor([[h, w]], dtype=torch.int32, device="cuda")
+        for th, tw in eng.level_plan(h, w):
+            thw = torch.tensor([[th, tw]], dtype=torch.int32, device="cuda")
+            x = eng._levels(canvas, ohw, thw, th, tw)[0].cpu().numpy()
+            got = (x * STD + MEAN) * 255.0
+            ref = np.asarray(Image.fromarray(ori).resize((tw, th), Image.BILINEAR), np.float32)
+            err = np.abs(got - ref)
+            worst = (max(worst[0], float(err.max())), max(worst[1], float(err.mean())))
+            if err.max() > PIL_MAX or err.mean() > PIL_MEAN:
+                raise RuntimeError(f"level {th}x{tw} of a {h}x{w} original differs from PIL: "
+                                   f"max {err.max():.3f}, mean {err.mean():.3f}")
+    print(f"[f32] device-derived levels vs PIL BILINEAR ({len(F32_IMAGES)} originals x "
+          f"{len(cfg.DATASET.imgSizes)} levels): max |d| {worst[0]:.4f} (limit {PIL_MAX}), largest mean |d| {worst[1]:.4f} "
+          f"(limit {PIL_MEAN}) grey levels", flush=True)
+
+
+def dp_vs_host_f32(ckpt, val_dir, odgt, torch):
+    """f32, TF32 off: device-pyramid metrics against the host-pyramid
+    batched engine on the same images (only the resize backend differs)."""
+    import numpy as np
+
+    from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
+    from semseg_tpu_torch.cli.eval import build_engines
+    from semseg_tpu_torch.data import ValDataset
+
+    cfg = _cfg("DIR", ckpt, "TPU.compute_dtype", "float32")
+    resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
+    pyrs, labels = _val_items(cfg, val_dir, odgt)
+    oris = [it["img_ori"] for it in (ValDataset(val_dir, odgt, cfg.DATASET, device_preprocess=True,
+                                                device_pyramid_canvas=(1088, 1600))[i]
+                                     for i in range(len(pyrs)))]
+    host = build_engines(cfg, 1, batch=4, pack_buckets=True, device="cuda")[0]
+    dev = build_engines(cfg, 1, batch=4, pack_buckets=True, device_pyramid=True,
+                        device="cuda")[0]
+    worst = np.zeros(3)
+    for (ha, hp, hi, hu), (da, dp, di, du) in zip(
+            host.batched_metrics(pyrs, labels), dev.batched_metrics_from_originals(oris, labels)):
+        if hp != dp:
+            raise RuntimeError(f"device-pyramid counted {dp} labelled pixels, host {hp}")
+        d = np.array([abs(ha - da), np.abs(hi - di).sum(), np.abs(hu - du).sum()]) / hp
+        worst = np.maximum(worst, d)
+    print(f"[f32] device-pyramid vs host-pyramid batched metrics on {len(pyrs)} images, "
+          f"{len(cfg.DATASET.imgSizes)} scales: equal pixel counts; largest |dacc|/pix {worst[0]:.5f} (< {DP_ACC}), "
+          f"sum|dinter|/pix {worst[1]:.5f} (< {DP_INTER}), sum|dunion|/pix {worst[2]:.5f} "
+          f"(< {DP_UNION})", flush=True)
+    if not (worst[0] < DP_ACC and worst[1] < DP_INTER and worst[2] < DP_UNION):
+        raise RuntimeError("device-pyramid metrics drift from the host-pyramid engine's")
+
+
+def zoo_card_vs_cpu(ckpts, torch):
+    """f32, TF32 off: each zoo config's exact engine on the card against
+    the CPU, one small image, 2 scales."""
+    import numpy as np
+
+    from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
+    from semseg_tpu_torch.cli.eval import build_engines
+    from semseg_tpu_torch.data import PyramidBuilder
+
+    h, w = 120, 160
+    img = np.random.RandomState(7).randint(0, 256, (h, w, 3), np.uint8)
+    for name, ckpt in ckpts.items():
+        cfg = _cfg("DIR", ckpt, "DATASET.imgSizes", "(96, 128)", "TPU.compute_dtype", "float32",
+                   path=os.path.join(HERE, "config", name))
+        resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
+        pyramid = PyramidBuilder(cfg.DATASET).multi_scale_pyramid(img)
+        engines = [build_engines(cfg, 1, exact=True, device=d)[0] for d in ("cuda", "cpu")]
+        card, cpu = (e.scores_for_pyramid(pyramid, (h, w)) for e in engines)
+        rel, scale = 0.0, 0.0
+        with torch.inference_mode():
+            for level in pyramid:
+                a, b = (e.model(e._to_device(level)).cpu() for e in engines)
+                scale = max(scale, b.abs().max().item())
+                rel = max(rel, ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item())
+        err = float(np.abs(card - cpu).max())
+        agree = float((card.argmax(-1) == cpu.argmax(-1)).mean())
+        print(f"[f32] zoo {cfg.MODEL.arch_encoder} + {cfg.MODEL.arch_decoder}: card vs CPU "
+              f"logits max |d| / max |logit| {rel:.3e} (limit {ZOO_REL}; largest |logit| "
+              f"{scale:.4g}), argmax agreement of the averaged scores {agree:.6f} (limit > "
+              f"{ZOO_AGREE}), max |dp| {err:.3e}", flush=True)
+        if not (np.isfinite(card).all() and rel <= ZOO_REL and agree > ZOO_AGREE):
+            raise RuntimeError(f"{name}: float32 card output disagrees with the CPU")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -682,7 +979,7 @@ def main(argv=None) -> int:
     print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"nvidia-smi: {card}", flush=True)
 
-    tic = time.perf_counter()
+    start = tic = time.perf_counter()
     ppm_pool._lib()
     print(f"[build] ppm_pool.cu built/loaded in {time.perf_counter() - tic:.2f} s", flush=True)
     print_build(ppm_pool)
@@ -700,9 +997,15 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
         ckpt, val_dir, odgt, launches = main_path(work, torch, ppm_pool)
+        zoo_launches, zoo_ckpts = zoo_phase(work, torch, ppm_pool)
+        for form, n in zoo_launches.items():
+            launches[form] += n
         steady_state(ckpt, val_dir, odgt, torch, card)
         card_vs_cpu(ckpt, torch)
         batched_f32(ckpt, work, torch)
+        levels_vs_pil(work, torch)
+        dp_vs_host_f32(ckpt, val_dir, odgt, torch)
+        zoo_card_vs_cpu(zoo_ckpts, torch)
 
     def numbers(case):
         # bf16 at the first timed case of the form; no single PyTorch call
@@ -711,6 +1014,8 @@ def main(argv=None) -> int:
         return dict(ms=warm, cold_ms=cold, plain_ms=plain, bound_ms=bound,
                     bound_by=bound_by, library_ms=None)
 
+    print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s from the build on",
+          flush=True)
     entry = dict(route="cuda", source="semseg_tpu_torch/csrc/ppm_pool.cu")
     print(json.dumps({"kernels": [
         {"name": "pyramid_pool", **entry, "replaces": "semseg_tpu/ops/pallas/ppm_pool.py:40",

@@ -6,7 +6,10 @@ levels resized onto the step lattice (``TPU.eval_bucket_step``), batches of
 4 same-bucket levels with under-filled buckets packed, pad-aware pooling,
 and metrics computed on the device over chunks of 32 images. ``--batch
 0``/``1`` runs the bucketed per-image engine, ``--exact`` the reference
-computation over host float pyramids.
+computation over host float pyramids. ``--device-pyramid`` (batched only,
+no ``--exact``, no ``VAL.visualize``) uploads each original once and
+derives its levels on the device; originals larger than the engine's
+canvas fall back to host pyramids.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from semseg_tpu_torch.data import EvalLoader, ValDataset
 from semseg_tpu_torch.data.dataset import _effective_lattice
 from semseg_tpu_torch.engine import (
     BatchedInferenceEngine,
+    DevicePyramidEngine,
     InferenceEngine,
     output_stride_for,
 )
@@ -52,10 +56,11 @@ def visualize_result(item, pred, save_dir):
 
 
 def build_engines(cfg, num_devices=1, exact=False, batch=0, fetch_dtype=None,
-                  pack_buckets=False, *, device="cuda"):
+                  pack_buckets=False, *, device_pyramid=False, device="cuda"):
     """The engine over the model that ``cfg`` names, on ``device``, as a
     one-element list (the JAX CLI's shape): the exact engine with
-    ``exact``, the batched engine for ``batch > 1``, else the bucketed
+    ``exact``; for ``batch > 1`` the device-pyramid engine with
+    ``device_pyramid``, else the batched engine; otherwise the bucketed
     per-image engine."""
     if num_devices != 1:
         raise NotImplementedError("the port evaluates on one device (multi-GPU: ROADMAP item 11)")
@@ -71,6 +76,10 @@ def build_engines(cfg, num_devices=1, exact=False, batch=0, fetch_dtype=None,
         padding_constant=cfg.DATASET.padding_constant,
         fetch_dtype=fetch_dtype,
     )
+    if batch > 1 and not exact and device_pyramid:
+        return [DevicePyramidEngine(model, batch_size=batch, pack_buckets=pack_buckets,
+                                    img_sizes=cfg.DATASET.imgSizes,
+                                    img_max_size=cfg.DATASET.imgMaxSize, **kw)]
     if batch > 1 and not exact:
         return [BatchedInferenceEngine(model, batch_size=batch,
                                        pack_buckets=pack_buckets, **kw)]
@@ -113,8 +122,22 @@ def evaluate(engines, loader, cfg, logger, visualize=False, vis_dir=None):
             labels = [np.asarray(it["seg_label"][0]) for it in chunk]
             tic = time.perf_counter()
             if not visualize:
-                # Only the packed metric vectors leave the device.
-                metrics = engine.batched_metrics([it["img_data"] for it in chunk], labels)
+                # Only the packed metric vectors leave the device. Items
+                # with an empty host pyramid take the device-pyramid path;
+                # oversized originals keep their host pyramids.
+                dp = [k for k, it in enumerate(chunk) if not it["img_data"]]
+                host = [k for k, it in enumerate(chunk) if it["img_data"]]
+                metrics = [None] * len(chunk)
+                if dp:
+                    out = engine.batched_metrics_from_originals(
+                        [chunk[k]["img_ori"] for k in dp], [labels[k] for k in dp])
+                    for k, m in zip(dp, out):
+                        metrics[k] = m
+                if host:
+                    out = engine.batched_metrics([chunk[k]["img_data"] for k in host],
+                                                 [labels[k] for k in host])
+                    for k, m in zip(host, out):
+                        metrics[k] = m
                 elapsed = (time.perf_counter() - tic) / len(chunk)
                 for acc_sum, pix_sum, inter, union in metrics:
                     acc_meter.update(float(acc_sum) / (float(pix_sum) + 1e-10), int(pix_sum))
@@ -177,6 +200,11 @@ def main(argv=None):
                              "buckets (area ratio <= 1.3, <= 32 px pad per "
                              "dimension); --no-pack-buckets keeps one bucket "
                              "per lattice point")
+    parser.add_argument("--device-pyramid", action="store_true",
+                        help="upload each original once and derive every "
+                             "pyramid level on the device (Pillow's "
+                             "antialiased bilinear filter); needs --batch > "
+                             "1, no --exact and VAL.visualize False")
     parser.add_argument("--start-idx", type=int, default=-1,
                         help="val-list shard start")
     parser.add_argument("--end-idx", type=int, default=-1,
@@ -203,10 +231,17 @@ def main(argv=None):
     resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
 
     logger = setup_logger()
+    # Visualization needs host pyramids (batched_predict), which the
+    # device-pyramid mode leaves empty.
+    device_pyramid = (args.device_pyramid and args.batch > 1 and not args.exact
+                      and not cfg.VAL.visualize)
+    if args.device_pyramid and not device_pyramid:
+        logger.warning("--device-pyramid ignored (requires --batch > 1, no --exact, "
+                       "and VAL.visualize False)")
     engines = build_engines(
         cfg, 1, exact=args.exact, batch=args.batch,
         fetch_dtype=None if args.exact else args.fetch_dtype,
-        pack_buckets=args.pack_buckets, device=args.device,
+        pack_buckets=args.pack_buckets, device_pyramid=device_pyramid, device=args.device,
     )
     dataset = ValDataset(
         cfg.DATASET.root_dataset, cfg.DATASET.list_val, cfg.DATASET,
@@ -214,6 +249,7 @@ def main(argv=None):
         # Bucket by resize: levels land on the lattice, so the engine
         # pads only what packing folds into a larger bucket.
         bucket_step=None if args.exact else cfg.TPU.eval_bucket_step,
+        device_pyramid_canvas=engines[0].ori_canvas if device_pyramid else None,
         start_idx=args.start_idx, end_idx=args.end_idx,
     )
     batched = isinstance(engines[0], BatchedInferenceEngine)

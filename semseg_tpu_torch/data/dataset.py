@@ -5,7 +5,9 @@ the eval and test paths use from ``semseg_tpu/data/dataset.py``.
   (reference ``dataset.py:206-296``): for each short-side in ``imgSizes``,
   the image is **resized** (not padded — a small aspect distortion, exactly
   like the reference, :232-236) to dimensions rounded up to
-  ``padding_constant``, or to the eval bucket lattice.
+  ``padding_constant``, or to the eval bucket lattice. With
+  ``device_pyramid_canvas`` a val item whose original fits the canvas has
+  no host pyramid: the device-pyramid engine derives it.
 
 Images decode and resize with PIL only. The JAX package's native libjpeg
 decode and resizer give the same pixels (it checks them bit for bit against
@@ -120,10 +122,15 @@ class BaseDataset(PyramidBuilder):
 
 
 class ValDataset(BaseDataset):
-    def __init__(self, root_dataset, odgt, opt, *, device_preprocess=False, **kwargs):
+    def __init__(self, root_dataset, odgt, opt, *, device_preprocess=False,
+                 device_pyramid_canvas=None, **kwargs):
         super().__init__(odgt, opt, **kwargs)
         self.root_dataset = root_dataset
         self.device_preprocess = device_preprocess
+        # Device-pyramid mode: an original that fits this (H, W) canvas
+        # skips the host pyramid (``img_data`` is empty; the engine derives
+        # every level from ``img_ori``); an oversized one keeps it.
+        self.device_pyramid_canvas = device_pyramid_canvas
 
     def __len__(self):
         return self.num_sample
@@ -134,9 +141,13 @@ class ValDataset(BaseDataset):
         segm = Image.open(os.path.join(self.root_dataset, rec["fpath_segm"]))
         assert segm.mode == "L"
         assert img.shape[:2] == (segm.size[1], segm.size[0])
+        canvas = self.device_pyramid_canvas
+        skip_pyramid = (canvas is not None and img.shape[0] <= canvas[0]
+                        and img.shape[1] <= canvas[1])
         return {
             "img_ori": img,
-            "img_data": self.multi_scale_pyramid(img, raw=self.device_preprocess),
+            "img_data": ([] if skip_pyramid
+                         else self.multi_scale_pyramid(img, raw=self.device_preprocess)),
             "seg_label": segm_transform(segm)[None],
             "info": rec["fpath_img"],
         }

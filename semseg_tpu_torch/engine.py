@@ -16,9 +16,13 @@
   f32 score canvas per image on the device: resize, softmax and the sum
   over levels run there, and only argmax maps or packed metric vectors come
   back.
+* ``DevicePyramidEngine`` takes the original images instead of host
+  pyramids and derives every level on the device (Pillow's antialiased
+  bilinear filter as two batched f32 products), then runs the batched
+  engine's chunk loop.
 
-Host arrays go up in one coalesced copy per chunk (pinned, on a side stream
-for a card, see ``_Upload``). Canvases are (H, W, num_class), as in the JAX
+Host arrays go up in one coalesced copy per chunk or window (pinned, on a
+side stream for a card, see ``_Upload``). Canvases are (H, W, num_class), as in the JAX
 package; model tensors are NCHW and channels_last in memory.
 """
 
@@ -32,10 +36,15 @@ import numpy as np
 import torch
 
 from semseg_tpu_torch.data.dataset import _effective_lattice
-from semseg_tpu_torch.data.transforms import MEAN, STD, round2nearest_multiple as _round_up
-from semseg_tpu_torch.ops.preproc import normalize_u8_masked
+from semseg_tpu_torch.data.transforms import (
+    MEAN,
+    STD,
+    round2nearest_multiple as _round_up,
+    scale_for,
+)
+from semseg_tpu_torch.ops.preproc import normalize_255, normalize_u8_masked, valid_mask
 from semseg_tpu_torch.ops.resize import resize_bilinear
-from semseg_tpu_torch.ops.resize_dynamic import resize_matrix
+from semseg_tpu_torch.ops.resize_dynamic import pil_resize_matrix, resize_matrix
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32,
                  np.dtype(np.float32): torch.float32}
@@ -562,3 +571,163 @@ class BatchedInferenceEngine(InferenceEngine):
             for i in window:
                 res[i] = (accs[i] / len(items[i])).argmax(0).numpy()
         return res
+
+
+class DevicePyramidEngine(BatchedInferenceEngine):
+    """Derives the multi-scale pyramid on the device from each original.
+
+    The host uploads every original once, uint8, padded to the ``ori_step``
+    lattice, with its label canvas: one pinned copy per window of at most
+    ``2 * batch_size`` images, issued on the side stream before the
+    previous window's forwards. Each level is one antialiased resample of
+    the original with Pillow's triangle filter (two batched float32
+    products with ``pil_resize_matrix``), then the normalization and the
+    zero mask of the host-pyramid path; so the levels differ from the host
+    pyramid's only by Pillow's 8-bit fixed-point rounding. The tasks
+    ``(item, th, tw)`` go through the batched engine's grouping, packing
+    and chunk loop; only each chunk's extents are uploaded per chunk.
+
+    The products run over the chunk's largest lattice-padded original, not
+    over all of ``ori_canvas``: the matrices are zero past each original's
+    true size, so the result is the same. ``ori_canvas`` (rounded up to the
+    lattice) only decides which originals take this path (``fits``).
+    """
+
+    def __init__(self, *args, img_sizes, img_max_size, ori_step: int = 64,
+                 ori_canvas=(1088, 1600), **kw):
+        super().__init__(*args, **kw)
+        # A scalar imgSizes is a single-scale config.
+        self.img_sizes = (tuple(img_sizes) if isinstance(img_sizes, (list, tuple))
+                          else (img_sizes,))
+        self.img_max_size = img_max_size
+        self.ori_step = ori_step
+        # Originals are padded up to the lattice, so the canvas sits on it
+        # too: an image that fits by its raw size then fits padded.
+        self.ori_canvas = (_round_up(int(ori_canvas[0]), ori_step),
+                           _round_up(int(ori_canvas[1]), ori_step))
+
+    def level_plan(self, ori_h: int, ori_w: int):
+        """Per-scale (target_h, target_w): ``ValDataset.multi_scale_pyramid``'s
+        shapes on the engine's lattice."""
+        plan = []
+        for s in self.img_sizes:
+            sc = scale_for(ori_h, ori_w, s, self.img_max_size)
+            plan.append((_round_up(int(ori_h * sc), self.bucket_step),
+                         _round_up(int(ori_w * sc), self.bucket_step)))
+        return plan
+
+    def fits(self, ori_h: int, ori_w: int) -> bool:
+        return ori_h <= self.ori_canvas[0] and ori_w <= self.ori_canvas[1]
+
+    def _windows(self, seg_sizes):
+        """Canvas-budget windows cut to ``2 * batch_size`` items: each
+        window's upload overlaps the previous window's forwards, and two
+        batches of images keep the cross-image level batching."""
+        n = max(2 * self.batch_size, 1)
+        return [w[lo:lo + n] for w in self._canvas_windows(seg_sizes, range(len(seg_sizes)))
+                for lo in range(0, len(w), n)]
+
+    def _level_groups(self, window, plans):
+        """A window's ``(item, th, tw)`` tasks grouped by bucket, packed."""
+        groups: dict = {}
+        for i in window:
+            for th, tw in plans[i]:
+                groups.setdefault(self._bucket_key(th, tw), []).append((i, th, tw))
+        return self._pack_groups(groups)
+
+    def _levels(self, canvases, ohw, thw, lh: int, lw: int) -> torch.Tensor:
+        """(B, Hc, Wc, 3) uint8 originals with true sizes ``ohw`` → (B, lh,
+        lw, 3) normalized float32 levels of sizes ``thw``, zero beyond them
+        ((B, 2) int32 on the device). Named ``semseg::levels`` for the
+        profiler."""
+        with torch.profiler.record_function("semseg::levels"):
+            _, hc, wc, _ = canvases.shape
+            m_h = pil_resize_matrix(lh, hc, thw[:, 0], ohw[:, 0], device=canvases.device)
+            m_w = pil_resize_matrix(lw, wc, thw[:, 1], ohw[:, 1], device=canvases.device)
+            x = torch.einsum("boh,bhwc->bowc", m_h, canvases.to(torch.float32))
+            x = torch.einsum("bpw,bowc->bopc", m_w, x)
+            mask = valid_mask((len(thw), lh, lw), thw[:, 0], thw[:, 1], batch_dims=1,
+                              device=canvases.device)
+            return torch.where(mask[..., None], normalize_255(x), 0.0)
+
+    def _upload_window(self, window, originals, labels, seg_sizes) -> _Upload:
+        """Start one window's upload: each original zero-padded to the
+        lattice, then each void-label canvas, in one pinned buffer."""
+        specs = []
+        for i in window:
+            h, w = originals[i].shape[:2]
+            if not self.fits(h, w):
+                raise ValueError(f"original {h}x{w} exceeds the canvas {self.ori_canvas}")
+            specs.append(((_round_up(h, self.ori_step), _round_up(w, self.ori_step), 3),
+                          np.uint8))
+        specs += [(self._bucket_key(*seg_sizes[i]), np.uint8) for i in window]
+        up = _Upload(specs, self.device)
+        for dst, i in zip(up.arrays, window):
+            h, w = originals[i].shape[:2]
+            dst[:h, :w] = originals[i]
+        for dst, i in zip(up.arrays[len(window):], window):
+            dst[...] = self._void_label_canvas(labels[i], *seg_sizes[i])
+        return up.send(self._upload_stream)
+
+    @torch.inference_mode()
+    def batched_metrics_from_originals(self, originals, labels):
+        """Multi-scale metrics from original images.
+
+        ``originals``: (H, W, 3) uint8 arrays that ``fits``; ``labels``:
+        matching (H, W) int arrays (-1 = void). Returns the packed
+        (acc_sum, pix_sum, intersection, union) tuples of
+        ``batched_metrics``.
+        """
+        if self.num_class >= 255:
+            raise ValueError("uint8 label transport needs num_class < 255")
+        if not originals:
+            return []
+        seg_sizes = [lab.shape for lab in labels]
+        plans = [self.level_plan(*ori.shape[:2]) for ori in originals]
+        if not all(plans):
+            raise ValueError("every image needs >= 1 level")
+        windows = self._windows(seg_sizes)
+        oris: dict = {}
+        dev_labels: dict = {}
+
+        def stage_chunk(key, padded):
+            up = _Upload([((self.batch_size, 2), np.int32)] * 2, self.device)
+            ohw, thw = up.arrays
+            for j, (i, th, tw) in enumerate(padded):
+                ohw[j] = originals[i].shape[:2]
+                thw[j] = (th, tw)
+            return up.send(self._upload_stream)
+
+        def forward_chunk(key, padded, staged):
+            ohw, thw = staged.get()
+            hc = max(oris[i].shape[0] for i, _, _ in padded)
+            wc = max(oris[i].shape[1] for i, _, _ in padded)
+            canvases = torch.zeros((len(padded), hc, wc, 3), dtype=torch.uint8,
+                                   device=self.device)
+            for j, (i, _, _) in enumerate(padded):
+                canvases[j, :oris[i].shape[0], :oris[i].shape[1]] = oris[i]
+            # The forward pools over each task's extent; logits stay f32.
+            x = self._levels(canvases, ohw, thw, *key).permute(0, 3, 1, 2)
+            logits = self.model(x.contiguous(memory_format=torch.channels_last), valid_hw=thw)
+            return logits, [(th, tw) for _, th, tw in padded]
+
+        def finalize(item_idx, acc):
+            return self._metrics_fn(acc, dev_labels.pop(item_idx))
+
+        out: dict = {}
+        upload = self._upload_window(windows[0], originals, labels, seg_sizes)
+        for k, window in enumerate(windows):
+            # The compute stream waits for this window's copy; the next
+            # window's copy is issued before this window's forwards.
+            views = upload.get()
+            for i, ori, lab in zip(window, views[:len(window)], views[len(window):]):
+                oris[i], dev_labels[i] = ori, lab
+            if k + 1 < len(windows):
+                upload = self._upload_window(windows[k + 1], originals, labels, seg_sizes)
+            out.update(self._accumulate_on_device(
+                seg_sizes, self._level_groups(window, plans), {i: len(plans[i]) for i in window},
+                forward_chunk, finalize, stage_chunk,
+            ))
+            for i in window:
+                del oris[i]
+        return self._fetch_packed_metrics(out, len(originals))

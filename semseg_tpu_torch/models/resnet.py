@@ -1,11 +1,13 @@
-"""Deep-stem dilated ResNet encoder (``semseg_tpu/models/resnet.py``), NCHW.
+"""Deep-stem ResNet / ResNeXt encoders (``semseg_tpu/models/resnet.py``), NCHW.
 
 * deep 3-conv stem: 3x3/s2 3→64, 3x3 64→64, 3x3 64→128, then max pool
   3/2/1; ``inplanes`` starts at 128;
-* Bottleneck blocks (expansion 4);
+* BasicBlock (expansion 1), Bottleneck (expansion 4) and GroupBottleneck
+  (ResNeXt: expansion 2, grouped 3x3 conv);
 * output stride 8 or 16 by construction-time dilation: in a stage dilated
-  by ``d`` the first block keeps stride 1 and its 3x3 conv gets dilation
-  ``max(d // 2, 1)``, every other 3x3 conv of the stage gets ``d``.
+  by ``d`` the first block keeps stride 1 and its formerly strided 3x3 conv
+  gets dilation ``max(d // 2, 1)``, every other 3x3 conv of the stage gets
+  ``d``; without ``dilate_scale`` the encoder has output stride 32.
 
 Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
 ``layer3.0.downsample.0``), so its checkpoints load as they are. The encoder
@@ -23,23 +25,38 @@ import torch.nn.functional as F
 from semseg_tpu_torch.ops.pool import max_pool2d
 from .layers import BatchNorm2d, Conv2d, ConvBN
 
+EXPANSION = {"basic": 1, "bottleneck": 4, "group_bottleneck": 2}
+
 
 class ResBlock(nn.Module):
-    """Bottleneck residual block: 1x1 → 3x3 (stride, dilation) → 1x1."""
+    """One residual block: basic (3x3 → 3x3), or bottleneck / grouped
+    bottleneck (1x1 → 3x3 (stride, dilation, groups) → 1x1).
 
-    expansion = 4
+    ``first_dilation`` is the dilation of the (formerly) strided 3x3 conv,
+    ``dilation`` that of a basic block's second 3x3 conv.
+    """
 
-    def __init__(self, inplanes: int, planes: int, *, stride: int = 1,
-                 dilation: int = 1, has_downsample: bool = False):
+    def __init__(self, block: str, inplanes: int, planes: int, *, stride: int = 1,
+                 dilation: int = 1, first_dilation: int = 1, groups: int = 1,
+                 has_downsample: bool = False):
         super().__init__()
-        out_ch = planes * self.expansion
-        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = BatchNorm2d(planes)
-        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=dilation,
-                            dilation=dilation, bias=False)
-        self.bn2 = BatchNorm2d(planes)
-        self.conv3 = Conv2d(planes, out_ch, 1, bias=False)
-        self.bn3 = BatchNorm2d(out_ch)
+        out_ch = planes * EXPANSION[block]
+        self.basic = block == "basic"
+        if self.basic:
+            self.conv1 = Conv2d(inplanes, planes, 3, stride=stride, padding=first_dilation,
+                                dilation=first_dilation, bias=False)
+            self.bn1 = BatchNorm2d(planes)
+            self.conv2 = Conv2d(planes, planes, 3, padding=dilation, dilation=dilation,
+                                bias=False)
+            self.bn2 = BatchNorm2d(planes)
+        else:
+            self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
+            self.bn1 = BatchNorm2d(planes)
+            self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=first_dilation,
+                                dilation=first_dilation, groups=groups, bias=False)
+            self.bn2 = BatchNorm2d(planes)
+            self.conv3 = Conv2d(planes, out_ch, 1, bias=False)
+            self.bn3 = BatchNorm2d(out_ch)
         self.downsample = (
             ConvBN(inplanes, out_ch, 1, stride=stride, act=None)
             if has_downsample else None
@@ -47,17 +64,20 @@ class ResBlock(nn.Module):
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        if self.basic:
+            out = self.bn2(self.conv2(out))
+        else:
+            out = F.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
 
 
 class ResNetEncoder(nn.Module):
-    """Deep-stem ResNet with optional output-stride dilation."""
+    """Deep-stem ResNet/ResNeXt with optional output-stride dilation."""
 
-    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
-                 planes: Sequence[int] = (64, 128, 256, 512), *,
+    def __init__(self, block: str = "bottleneck", layers: Sequence[int] = (3, 4, 6, 3),
+                 planes: Sequence[int] = (64, 128, 256, 512), *, groups: int = 1,
                  dilate_scale: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -74,16 +94,17 @@ class ResNetEncoder(nn.Module):
         inplanes = 128
         for i, (blocks, width) in enumerate(zip(layers, planes)):
             stride, d = strides[i], dilations[i]
-            out_ch = width * ResBlock.expansion
+            out_ch = width * EXPANSION[block]
             stage = []
             for j in range(blocks):
                 first = j == 0
                 stage.append(ResBlock(
-                    inplanes if first else out_ch, width,
+                    block, inplanes if first else out_ch, width,
                     stride=stride if first else 1,
                     # The formerly strided conv gets d // 2; all other 3x3
                     # convs of the stage get d.
-                    dilation=max(d // 2, 1) if first else d,
+                    first_dilation=max(d // 2, 1) if first else d,
+                    dilation=d, groups=groups,
                     has_downsample=first and (stride != 1 or inplanes != out_ch),
                 ))
             inplanes = out_ch
@@ -114,5 +135,18 @@ class ResNetEncoder(nn.Module):
         return features
 
 
+def resnet18(**kw):
+    return ResNetEncoder(block="basic", layers=(2, 2, 2, 2), **kw)
+
+
 def resnet50(**kw):
-    return ResNetEncoder(layers=(3, 4, 6, 3), **kw)
+    return ResNetEncoder(block="bottleneck", layers=(3, 4, 6, 3), **kw)
+
+
+def resnet101(**kw):
+    return ResNetEncoder(block="bottleneck", layers=(3, 4, 23, 3), **kw)
+
+
+def resnext101(**kw):
+    return ResNetEncoder(block="group_bottleneck", layers=(3, 4, 23, 3),
+                         planes=(128, 256, 512, 1024), groups=32, **kw)

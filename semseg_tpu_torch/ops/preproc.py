@@ -15,6 +15,13 @@ import torch
 from semseg_tpu_torch.data.transforms import MEAN, STD
 
 
+def normalize_255(x: torch.Tensor) -> torch.Tensor:
+    """float32 pixels in [0, 255] (..., 3) → ImageNet-normalized."""
+    mean = torch.tensor(MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(STD, dtype=torch.float32, device=x.device)
+    return (x / 255.0 - mean) / std
+
+
 def valid_mask(shape, h, w, *, batch_dims: int = 0, device=None) -> torch.Tensor:
     """Boolean (..., H, W) mask of the valid region.
 
@@ -37,9 +44,7 @@ def normalize_u8_masked(img_u8: torch.Tensor, h, w) -> torch.Tensor:
     """Normalize a (N, H, W, 3) or (H, W, 3) uint8 canvas to float32 and
     zero the region outside ``h``/``w`` (scalars, or length-N tensors for
     the batched form)."""
-    mean = torch.tensor(MEAN, dtype=torch.float32, device=img_u8.device)
-    std = torch.tensor(STD, dtype=torch.float32, device=img_u8.device)
-    x = (img_u8.to(torch.float32) / 255.0 - mean) / std
+    x = normalize_255(img_u8.to(torch.float32))
     batch_dims = img_u8.dim() - 3
     mask = valid_mask(img_u8.shape[:-1], h, w, batch_dims=batch_dims,
                       device=img_u8.device)

@@ -8,6 +8,8 @@ canvases. These ops keep the global operations exact on such canvases:
   centres, edge clamping, no antialiasing: ``F.interpolate(bilinear,
   align_corners=False)``) whose shape is the padded one while the true
   sizes are runtime values; columns past ``in_valid`` are zero.
+* ``pil_resize_matrix``: Pillow's antialiased BILINEAR filter as such a
+  matrix (the device-pyramid engine's level derivation).
 * ``adaptive_pool_matrix`` / ``adaptive_avg_pool2d_valid``: PyTorch's
   ``AdaptiveAvgPool2d`` with bins ``[floor(g*v/s), ceil((g+1)*v/s))`` over
   the VALID extent ``v`` only. The PPM head takes all four of its grids at
@@ -49,6 +51,28 @@ def resize_matrix(out_pad: int, in_pad: int, out_valid, in_valid, *,
     src = torch.minimum(torch.clamp(src, min=0.0), in_valid - 1.0)
     w = torch.clamp(1.0 - (src - k).abs(), min=0.0)
     return torch.where(k < in_valid, w, 0.0)
+
+
+def pil_resize_matrix(out_pad: int, in_pad: int, out_valid, in_valid, *,
+                      device=None) -> torch.Tensor:
+    """(..., out_pad, in_pad) antialiased bilinear (triangle-filter) matrix
+    for runtime sizes (``semseg_tpu/engine.py::_pil_resize_matrix``).
+
+    Pillow's BILINEAR resampling (the reference's ``imresize``): the filter
+    support scales with the downsampling ratio and windows clipped at the
+    border renormalize; for upscaling it is half-pixel-centre bilinear.
+    Columns past ``in_valid`` are zero.
+    """
+    i = torch.arange(out_pad, dtype=torch.float32, device=device).view(-1, 1)
+    k = torch.arange(in_pad, dtype=torch.float32, device=device).view(1, -1)
+    out_valid = _valid(out_valid, device)
+    in_valid = _valid(in_valid, device)
+    scale = in_valid / out_valid
+    support = torch.clamp(scale, min=1.0)
+    center = (i + 0.5) * scale
+    w = torch.clamp(1.0 - (k + 0.5 - center).abs() / support, min=0.0)
+    w = torch.where(k < in_valid, w, 0.0)
+    return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-12)
 
 
 def adaptive_pool_matrix(grid: int, in_pad: int, in_valid, *,

@@ -3,7 +3,8 @@
 ``semseg_tpu_torch.{config, data, utils}`` are copies of the JAX package's
 modules, so that the port imports nothing of ``semseg_tpu``. These tests hold
 each copy to its original on seeded synthetic inputs: the merged config,
-the eval/test pyramids (uint8 on the step-8 lattice, float for ``--exact``),
+the eval/test pyramids (uint8 on the step-8 lattice, float for ``--exact``,
+none for originals that fit a device-pyramid canvas),
 the lattice rounding and the metrics. Equality is exact throughout.
 """
 
@@ -95,6 +96,25 @@ def test_val_dataset_pyramids_equal(val_set, device_preprocess, bucket_step):
         assert len(a["img_data"]) == len(b["img_data"]) == 3
         for la, lb in zip(a["img_data"], b["img_data"]):
             assert la.dtype == lb.dtype == (np.uint8 if device_preprocess else np.float32)
+            np.testing.assert_array_equal(la, lb)
+
+
+@pytest.mark.parametrize("canvas", [(64, 64), (90, 90), (1088, 1600)])
+def test_val_dataset_device_pyramid_items_equal(val_set, canvas):
+    """With ``device_pyramid_canvas`` an original that fits has an empty
+    host pyramid, an oversized one keeps it; as in the JAX package."""
+    root, odgt = val_set
+    opt = _cfg(port_config, "DATASET.imgSizes", SIZES).DATASET
+    kw = dict(device_preprocess=True, bucket_step=8, device_pyramid_canvas=canvas)
+    port = port_data.ValDataset(root, odgt, opt, **kw)
+    ref = jax_data.ValDataset(root, odgt, opt, **kw)
+    for i in range(len(ref)):
+        a, b = port[i], ref[i]
+        fits = SHAPES[i][0] <= canvas[0] and SHAPES[i][1] <= canvas[1]
+        assert len(a["img_data"]) == len(b["img_data"]) == (0 if fits else 3)
+        np.testing.assert_array_equal(a["img_ori"], b["img_ori"])
+        np.testing.assert_array_equal(a["seg_label"], b["seg_label"])
+        for la, lb in zip(a["img_data"], b["img_data"]):
             np.testing.assert_array_equal(la, lb)
 
 

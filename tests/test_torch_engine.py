@@ -83,7 +83,7 @@ def reference_pth(tmp_path_factory):
     from semseg_tpu.config import cfg
 
     ckpt = tmp_path_factory.mktemp("ckpt")
-    model = ModelBuilder.build_model(cfg.clone(), seed=5)
+    model = ModelBuilder.build_model(cfg.clone(), device="cpu", seed=5)
     for name, module in (("encoder", model.encoder), ("decoder", model.decoder)):
         sd = module.state_dict()
         # The reference SyncBN also saves its accumulators.

@@ -165,7 +165,7 @@ def test_full_width_matches_jax():
     )(variables, jnp.asarray(img)))
 
     c.TPU.compute_dtype = "float32"
-    model = ModelBuilder.build_model(c)
+    model = ModelBuilder.build_model(c, device="cpu")
     enc_sd, dec_sd = state_dicts_from_jax(jax.tree.map(np.asarray, variables), **ARCH)
     # Inference-only init has no deep-supervision branch; keep the port's.
     full_dec = model.decoder.state_dict()
@@ -177,8 +177,57 @@ def test_full_width_matches_jax():
     assert (out.argmax(-1) == ref.argmax(-1)).mean() > 0.999
 
 
-def test_builder_rejects_unported_architectures():
+@pytest.mark.parametrize("which,arch", [
+    ("encoder", "resnet152"), ("encoder", "resnext101dilated"), ("decoder", "ppm_lite"),
+    ("decoder", "c2"),
+])
+def test_builder_rejects_unknown_architectures(which, arch):
+    """An unknown key raises ValueError, as the JAX builder does."""
+    with pytest.raises(ValueError, match="Architecture undefined"):
+        getattr(JaxModelBuilder, f"build_{which}")(arch)
+    with pytest.raises(ValueError, match="Architecture undefined"):
+        getattr(ModelBuilder, f"build_{which}")(arch, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["resnet34", "resnet34dilated"])
+def test_builder_has_no_resnet34(arch):
     with pytest.raises(NotImplementedError):
-        ModelBuilder.build_encoder("resnet18dilated")
+        JaxModelBuilder.build_encoder(arch)
     with pytest.raises(NotImplementedError):
-        ModelBuilder.build_decoder("upernet")
+        ModelBuilder.build_encoder(arch, device="cpu")
+
+
+BUILDER_PROBE = r"""
+import inspect, torch
+from semseg_tpu_torch.config import cfg
+from semseg_tpu_torch.models import ModelBuilder
+defaults = [inspect.signature(f).parameters["device"].default for f in (
+    ModelBuilder.build_encoder, ModelBuilder.build_decoder, ModelBuilder.build_model)]
+c = cfg.clone()
+c.MODEL.arch_encoder, c.MODEL.arch_decoder, c.MODEL.fc_dim = "mobilenetv2dilated", "c1", 320
+model = ModelBuilder.build_model(c, device="cpu")
+on = {p.device.type for p in model.parameters()}
+try:
+    ModelBuilder.build_model(c)
+    default_build = "built"
+except (AssertionError, RuntimeError) as e:
+    default_build = "needs a card" if "CUDA" in str(e) else repr(e)
+print(torch.cuda.is_available(), defaults, sorted(on), default_build)
+"""
+
+
+def test_builder_runs_on_the_card_by_default():
+    """In a fresh interpreter without CUDA: every builder defaults to
+    ``device="cuda"`` (so a default build needs a card), and an explicit
+    ``device="cpu"`` builds on the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "SEMSEG_PLATFORM"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "-c", BUILDER_PROBE], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[0] == "False ['cuda', 'cuda', 'cuda'] ['cpu'] needs a card"
