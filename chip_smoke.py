@@ -49,7 +49,26 @@ PyTorch built for CUDA. In order:
    and for every zoo config; the batched engine's device metrics against
    host metrics of its maps, and its maps, packed and unpacked, against
    the per-image bucketed engine; the levels derived on the card against
-   PIL; the device-pyramid metrics against the host-pyramid engine's.
+   PIL; the device-pyramid metrics against the host-pyramid engine's;
+8. training: the ``pyramid_pool`` backward kernel against its plain version
+   at the training shapes (conv5 of the largest canvas, of bench.py's
+   448x608 batch 8, and of a small canvas; odd C, unaligned gradients,
+   13x13, 4x5 and 1x1 maps; two launches bit-equal), timed warm and L2-cold
+   beside its bound; the flagship in bf16 at batch 2 through ``cli.train``
+   on 8 labelled JPEGs (epoch 1, then a resume into epoch 2, then
+   ``cli.eval`` of the ``epoch_2.pth`` pair), with the pool's forward and
+   backward launches equal to the steps run; the loss falling over 5 steps
+   on one repeated batch; one float32 step (TF32 off) on the card against
+   the CPU from the same weights and batch (loss, the gradients of layer4's
+   last conv, a PPM branch conv and ``conv_last``, the BN statistics: a
+   missing pool gradient moves layer4's by O(1)); and steady state at
+   bench.py's train shape (batch 8, 448x608) with peak memory at batch 2
+   and 8 and a ``torch.profiler`` step broken down by kernel.
+
+With ``--against DIR`` it instead times the train step (phase 8) and the
+eval engines' steady state (phase 6) of this checkout and of the checkout
+at DIR (one whose ``chip_smoke.py`` has both phases) in turns: DIR, this,
+this, DIR, each in a process of its own, and stops.
 
 It ends with a JSON line of per-kernel results, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}`` as the last
@@ -153,6 +172,29 @@ DP_ACC, DP_INTER, DP_UNION = 0.02, 0.02, 0.04
 # scale-free test: resnet101dilated gave max |dp| 2.247e-03 at argmax
 # agreement 1.0 on an H100; max |dp| is printed without a limit.
 ZOO_REL, ZOO_AGREE = 1e-3, 0.999
+# The backward kernel (phase 8): conv5 of the largest training canvas at
+# imgMaxSize 1000 (640x1024), of bench.py's 448x608 batch 8, of a small
+# canvas; then odd C, and maps whose segments are 1 pixel (13x13) or whose
+# pixels lie in several bins of one scale per axis (4x5, 1x1).
+BACKWARD_CHECKS = [(2, 80, 128, 2048), (8, 56, 76, 2048), (2, 40, 56, 2048), (2, 40, 56, 250),
+                   (2, 13, 13, 2048), (2, 4, 5, 2048), (2, 1, 1, 2048)]
+BACKWARD_TIMED = [(8, 56, 76, 2048), (2, 80, 128, 2048), (2, 40, 56, 2048)]
+# Training on 8 labelled JPEGs, both orientations (aspect-binned batches).
+TRAIN_IMAGES = [(375, 500), (500, 375), (480, 640), (640, 480), (333, 500), (512, 384),
+                (600, 451), (375, 625)]
+TRAIN_ITERS = 4  # per epoch, two epochs (the second one resumed)
+# bench.py's train step (bench.py:243): batch 8, 448x608, random inputs.
+BENCH_TRAIN = (8, 448, 608)
+# Card against CPU, one float32 step (TF32 off): the loss within LOSS_REL,
+# each gradient within GRAD_REL in relative norm, each BN statistic within
+# STAT_REL of its largest magnitude. float32 against float64 on the CPU:
+# gradients 1.3-2.9% apart in relative norm (deep layers; batch norm over
+# the PPM's 1x1 grids, 2 values at batch 2, amplifies rounding), statistics
+# up to 7.4e-4 (conv_last's BN, after a 3x3 conv over 4096 channels);
+# without the pool's gradient layer4's last conv moves by 67%. On an H100
+# the card against the CPU gave 2.7-4.9% and 1.5e-3.
+LOSS_REL, GRAD_REL, STAT_REL = 1e-4, 0.15, 1e-2
+CARD = "cuda"  # the training phases' device (a CPU rehearsal may set "cpu")
 
 
 def _card_line() -> str:
@@ -476,20 +518,26 @@ def expected_dp_chunks(cfg, shapes, batch=4, *, quiet=False):
     return chunks
 
 
-def _run_path(name, fn, ppm_pool, torch):
-    """Drive one path with both launch counts set to 0; returns (result,
-    seconds, dense launches, valid launches)."""
+def _run_path(name, fn, ppm_pool, torch, backward=0):
+    """Drive one path with the launch counts set to 0; returns (result,
+    seconds, dense launches, valid launches). The backward kernel must
+    launch ``backward`` times."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ppm_pool.LAUNCHES = 0
     ppm_pool.VALID_LAUNCHES = 0
+    ppm_pool.BACKWARD_LAUNCHES = 0
     tic = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - tic
     dense, valid = ppm_pool.LAUNCHES, ppm_pool.VALID_LAUNCHES
-    print(f"[main] {name}: pyramid_pool launches dense {dense}, valid_hw {valid}; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"[main] {name}: pyramid_pool launches dense {dense}, valid_hw {valid}, backward "
+          f"{ppm_pool.BACKWARD_LAUNCHES}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if ppm_pool.BACKWARD_LAUNCHES != backward:
+        raise RuntimeError(f"{name}: {ppm_pool.BACKWARD_LAUNCHES} backward launches, "
+                           f"expected {backward}")
     return result, seconds, dense, valid
 
 
@@ -951,6 +999,357 @@ def zoo_card_vs_cpu(ckpts, torch):
             raise RuntimeError(f"{name}: float32 card output disagrees with the CPU")
 
 
+def check_backward_kernel(ppm_pool, torch) -> float:
+    """The backward kernel against its plain version (phase 8); two
+    launches on the same gradients must agree bit for bit. Returns the
+    largest absolute difference."""
+    max_err = 0.0
+    g = torch.Generator(device="cuda").manual_seed(8)
+    lib = ppm_pool._lib()
+    cases = [(shape, dt, False) for shape in BACKWARD_CHECKS for dt in ("float32", "bfloat16")]
+    cases += [((2, 75, 100, 2048), dt, True) for dt in ("float32", "bfloat16")]
+    for shape, dt, unaligned in cases:
+        dtype = getattr(torch, dt)
+        n, h, w, c = shape
+        grads = []
+        for s in ppm_pool.SCALES:
+            flat = torch.randn(n * s * s * c + 1, generator=g, device="cuda").to(dtype)
+            grads.append((flat[1:] if unaligned else flat[:-1]).view(n, s, s, c))
+        out = ppm_pool.launch_backward(lib, grads, (h, w))
+        again = ppm_pool.launch_backward(lib, grads, (h, w))
+        ref = ppm_pool.pyramid_pool_backward_plain(grads, (h, w))
+        if not torch.equal(out, again):
+            raise RuntimeError(f"pyramid_pool backward {shape} {dt}: two launches differ")
+        # f32: the same terms in the same order, times the area's reciprocal
+        # in the kernel and divided by the area in the plain version, one
+        # rounding apart per term; bf16: one bf16 ulp.
+        tol = dict(atol=1e-6, rtol=1e-6) if dtype == torch.float32 else dict(atol=1e-6, rtol=8e-3)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        err = (out.float() - ref.float()).abs().max().item()
+        max_err = max(max_err, err)
+        where = ", unaligned gradients" if unaligned else ""
+        print(f"[check] pyramid_pool backward {shape} {dt}{where}: ok, max |d| {err:.3e}, "
+              "two launches bit-equal", flush=True)
+    torch.cuda.synchronize()
+    return max_err
+
+
+def backward_bound_ms(shape, element_size):
+    """Least time for one backward call on an H100 SXM: grad_x written once
+    and the 50 bin gradients per channel read once over 3.35 TB/s, against
+    its adds (50 terms per cell and channel, at most 121 cells) at 67
+    TFLOP/s."""
+    n, h, w, c = shape
+    moved = (n * h * w + 50 * n) * c * element_size
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * 50 * 121 * n * c / 67e12 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def time_backward(ppm_pool, torch, card) -> dict:
+    """Phase 8: (warm ms, cold ms, plain ms, bound ms, bound_by) of the
+    backward kernel per timed shape and dtype."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    lib = ppm_pool._lib()
+    out = {}
+    for shape in BACKWARD_TIMED:
+        n, h, w, c = shape
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            grads = [torch.randn(n, s, s, c, device="cuda").to(dtype) for s in ppm_pool.SCALES]
+            run = lambda: ppm_pool.launch_backward(lib, grads, (h, w))  # noqa: E731
+            warm = _median_ms(run, torch)
+            cold = _median_ms(run, torch, flush)
+            plain = _median_ms(lambda: ppm_pool.pyramid_pool_backward_plain(grads, (h, w)), torch)
+            bound, bound_by = backward_bound_ms(shape, grads[0].element_size())
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    flush.sum()
+                    run()
+                torch.cuda.synchronize()
+            dev = [e.self_device_time_total / e.count for e in prof.key_averages()
+                   if "ppm_pool_backward_kernel" in e.key]
+            out[(shape, dt)] = (warm, cold, plain, bound, bound_by)
+            print(f"[time] pyramid_pool backward {shape} {dt}: kernel {warm:.4f} ms warm, "
+                  f"{cold:.4f} ms cold; bound {bound:.4f} ms ({bound_by}), share of bound "
+                  f"{bound / cold:.3f} cold, {bound / warm:.3f} warm; kernel under the profiler "
+                  f"(cold) {dev[0] if dev else float('nan'):.2f} us; plain {plain:.4f} ms "
+                  f"(median of 50; card: {card})", flush=True)
+    return out
+
+
+def _train_cfg_opts(root, odgt):
+    return ["DATASET.root_dataset", root, "DATASET.list_train", odgt, "DATASET.list_val", odgt,
+            "TRAIN.epoch_iters", str(TRAIN_ITERS), "TRAIN.disp_iter", "2", "TRAIN.workers", "2"]
+
+
+def train_phase(work, torch, ppm_pool, card):
+    """The flagship at full width, bf16, batch 2 (the config's) through
+    ``cli.train``: epoch 1, a resume into epoch 2, then ``cli.eval`` of the
+    ``epoch_2.pth`` pair. Returns the launches of the training runs."""
+    import numpy as np
+
+    from semseg_tpu_torch.cli import eval as eval_cli, train as train_cli
+
+    root = os.path.join(work, "train_set")
+    odgt = _write_val_set(root, TRAIN_IMAGES, seed=9)
+    out = os.path.join(work, "train_run")
+    opts = ["DIR", out, *_train_cfg_opts(root, odgt)]
+    launches = {"dense": 0, "backward": 0}
+    # Epoch 1 as a run of one epoch, then a resume of it into a run of two
+    # (the poly schedule's horizon grows from 4 to 8 steps at the resume).
+    for name, extra, want_history in (
+            ("cli.train epoch 1", ["TRAIN.num_epoch", "1"], 2),
+            ("cli.train resumed into epoch 2", ["TRAIN.num_epoch", "2", "TRAIN.start_epoch", "1"],
+             4)):
+        (state, history), seconds, dense, valid = _run_path(
+            name, lambda: train_cli.main(["--cfg", CFG, *opts, *extra]), ppm_pool, torch,
+            backward=TRAIN_ITERS)
+        losses = history["train"]["loss"]
+        if (dense, valid) != (TRAIN_ITERS, 0) or len(losses) != want_history:
+            raise RuntimeError(f"{name}: pool launches dense {dense} / valid {valid} "
+                               f"(expected {TRAIN_ITERS} / 0), history {history}")
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"{name}: non-finite loss in {losses}")
+        launches["dense"] += dense
+        launches["backward"] += ppm_pool.BACKWARD_LAUNCHES
+        print(f"[train] {name}: {TRAIN_ITERS} steps at batch 2, bf16, full width, now at step "
+              f"{state.step}; losses at the display steps {[round(x, 4) for x in losses]}; "
+              f"{seconds:.1f} s wall (model build, loader start and cuDNN set-up for each new "
+              f"canvas included; card: {card})", flush=True)
+    pair = [os.path.join(out, f"{p}_epoch_2.pth") for p in ("encoder", "decoder")]
+    if not all(os.path.exists(p) for p in pair):
+        raise RuntimeError(f"cli.train wrote no epoch_2 pair in {os.listdir(out)}")
+    chunks = expected_chunks(_cfg(*_train_cfg_opts(root, odgt)), root, odgt, flagship=False)
+    (miou, acc, _, raw), _, dense, valid = _run_path(
+        "cli.eval of the trained epoch_2.pth pair", lambda: eval_cli.main(
+            ["--cfg", CFG, "DIR", out, "VAL.checkpoint", "epoch_2.pth",
+             *_train_cfg_opts(root, odgt)]), ppm_pool, torch)
+    if (dense, valid) != (0, chunks) or not (np.isfinite(miou) and raw["pix_count"] > 0):
+        raise RuntimeError(f"cli.eval of the trained pair: launches {dense}/{valid} (expected "
+                           f"0/{chunks}), mIoU {miou}")
+    print(f"[train] cli.eval VAL.checkpoint epoch_2.pth: mIoU {miou:.4f}, accuracy "
+          f"{acc * 100:.2f}% over {raw['pix_count']:.0f} labelled pixels", flush=True)
+    return launches, root, odgt
+
+
+def _train_model(torch, cfg, device, seed=0):
+    from semseg_tpu_torch.models import ModelBuilder
+    from semseg_tpu_torch.parallel import create_train_state
+
+    model = ModelBuilder.build_model(cfg, device=device, seed=seed)
+    return create_train_state(cfg, model.train())
+
+
+def loss_falls(torch, root, odgt, card):
+    """Five steps on one repeated batch of the written set: the loss falls."""
+    from semseg_tpu_torch.data import TrainDataset
+    from semseg_tpu_torch.parallel import dropout_generator, train_step
+
+    cfg = _cfg(*_train_cfg_opts(root, odgt))
+    state = _train_model(torch, cfg, CARD)
+    host = TrainDataset(root, odgt, cfg.DATASET, batch_per_gpu=2, seed=1,
+                        bucket_step=cfg.TPU.bucket_step, raw_transport=True).next_batch()
+    batch = {k: torch.from_numpy(v).to(CARD) for k, v in host.items()}
+    losses = [float(train_step(state, batch, dropout_generator(0, i))["loss"]) for i in range(5)]
+    print(f"[train] one repeated batch {tuple(host['img_data'].shape)}, 5 steps: losses "
+          f"{[round(x, 4) for x in losses]} (card: {card})", flush=True)
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall on a repeated batch: {losses}")
+
+
+def train_card_vs_cpu(torch, ppm_pool):
+    """One float32 step, TF32 off, on the card and on the CPU from the same
+    weights and batch, dropout at 0."""
+    import numpy as np
+
+    from semseg_tpu_torch.models.layers import Dropout2d
+    from semseg_tpu_torch.parallel import train_step
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _cfg("TPU.compute_dtype", "float32")
+    rng = np.random.RandomState(10)
+    n, h, w = 2, 256, 320
+    host = {"img_data": rng.randn(n, h, w, 3).astype(np.float32),
+            "seg_label": rng.randint(-1, 150, (n, h // 8, w // 8)).astype(np.int32)}
+    states = {}
+    for device in (CARD, "cpu"):
+        state = _train_model(torch, cfg, device)
+        for m in state.model.modules():
+            if isinstance(m, Dropout2d):
+                m.p = 0.0
+        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        before = ppm_pool.BACKWARD_LAUNCHES
+        loss = float(train_step(state, batch)["loss"])
+        if device == CARD and ppm_pool.BACKWARD_LAUNCHES != before + 1:
+            raise RuntimeError("the card's training step did not launch the backward kernel")
+        states[device] = (state, loss)
+    (card, card_loss), (cpu, cpu_loss) = states[CARD], states["cpu"]
+    params = dict(cpu.model.named_parameters())
+    report, failed = [], []
+    for name in ("encoder.layer4.2.conv3.weight", "decoder.ppm.0.1.weight",
+                 "decoder.ppm.3.1.weight", "decoder.conv_last.4.weight"):
+        a = dict(card.model.named_parameters())[name].grad.cpu()
+        b = params[name].grad
+        rel = float((a - b).norm() / b.norm())
+        report.append(f"{name} {rel:.3e}")
+        if not rel < GRAD_REL:
+            failed.append(name)
+    stat_rel, stat_key = 0.0, ""
+    for (k, a), b in zip(card.model.state_dict().items(), cpu.model.state_dict().values()):
+        if "running" in k:
+            rel = float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            stat_rel, stat_key = max((stat_rel, stat_key), (rel, k))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"[f32] one training step, card vs CPU (TF32 off, {n}x{h}x{w}, dropout 0): loss "
+          f"{card_loss:.6f} vs {cpu_loss:.6f}, relative {loss_rel:.2e} (limit {LOSS_REL}); "
+          f"gradients, relative norm error (limit {GRAD_REL}): " + ", ".join(report) +
+          f"; BN statistics max |d| / max {stat_rel:.2e} ({stat_key}; limit {STAT_REL})",
+          flush=True)
+    if failed or not (loss_rel < LOSS_REL and stat_rel < STAT_REL):
+        raise RuntimeError(f"float32 training step: card disagrees with the CPU ({failed})")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def train_steady_state(torch, card):
+    """bench.py's train step on the card: random f32 images and labels
+    already on the device, the flagship in bf16; s/step over 3 x 10 steps
+    after one warm-up step, peak memory, and a profile of one step."""
+    import numpy as np
+
+    from semseg_tpu_torch.parallel import dropout_generator, train_step
+
+    cfg = _cfg()
+    out = {}
+    for batch_size in (2, BENCH_TRAIN[0]):
+        _, h, w = BENCH_TRAIN
+        rng = np.random.RandomState(0)
+        batch = {"img_data": torch.from_numpy(
+                     rng.randn(batch_size, h, w, 3).astype(np.float32)).to(CARD),
+                 "seg_label": torch.from_numpy(
+                     rng.randint(-1, 150, (batch_size, h // 8, w // 8)).astype(np.int32)).to(CARD)}
+        state = _train_model(torch, cfg, CARD)
+        step = lambda: train_step(state, batch, dropout_generator(0, state.step))  # noqa: E731
+        float(step()["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(3):
+            tic = time.perf_counter()
+            for _ in range(10):
+                m = step()
+            loss = float(m["loss"])
+            runs.append((time.perf_counter() - tic) / 10)
+        if not np.isfinite(loss):
+            raise RuntimeError(f"steady state: non-finite loss {loss}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        best, med = min(runs), sorted(runs)[1]
+        out[batch_size] = (best, med, peak)
+        print(f"[steady] train step, flagship bf16, batch {batch_size}, {h}x{w} (bench.py's "
+              f"shape): {best:.4f} s/step best, {med:.4f} median of 3 x 10 steps = "
+              f"{batch_size / best:.1f} img/s best, {batch_size / med:.1f} median; peak device "
+              f"memory {peak:.2f} GiB (card: {card})", flush=True)
+        if batch_size == BENCH_TRAIN[0]:
+            profile_train_step(step, torch, card, med)
+        del state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_KERNEL_GROUPS = (
+    ("pool forward", ("ppm_cells_kernel", "ppm_combine_kernel")),
+    ("pool backward", ("ppm_pool_backward_kernel",)),
+    ("convolutions (cuDNN)", ("conv", "xmma", "gemm", "cudnn", "implicit", "wgrad", "dgrad",
+                              "cutlass", "sm90_", "sm80_", "nchwToNhwc", "nhwcToNchw")),
+    ("casts and copies", ("copy",)),
+    ("reductions (BN statistics, loss sums)", ("reduce_kernel",)),
+    ("optimizer (foreach SGD)", ("multi_tensor_apply",)),
+    ("other elementwise (BN affine and its backward, ReLU, adds, loss)", ("elementwise",)),
+)
+
+
+def profile_train_step(step, torch, card, wall_s):
+    """One profiled train step: device time by the train step's ranges
+    (forward, backward, optimizer) and by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_profile_train.txt"), "w") as f:
+        f.write(f"card: {card}\n")
+        f.write(events.table(sort_by="self_device_time_total", row_limit=80,
+                             max_name_column_width=120))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        print("[profile] train step: the profiler recorded no device time; not measured",
+              flush=True)
+        return
+    groups = {name: 0.0 for name, _ in TRAIN_KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for e in kernels:
+        name = next((g for g, keys in TRAIN_KERNEL_GROUPS if any(k in e.key for k in keys)),
+                    "other")
+        groups[name] += e.self_device_time_total / 1e3
+    # Autograd launches the backward's kernels from its own thread, outside
+    # the semseg::backward range: the backward is what the forward and
+    # optimizer ranges leave.
+    ranges = {e.key: e.device_time_total / 1e3 for e in events
+              if e.key in ("semseg::forward", "semseg::optimizer")
+              and e.device_type == DeviceType.CPU}
+    fwd, opt = ranges.get("semseg::forward", 0.0), ranges.get("semseg::optimizer", 0.0)
+    print(f"[profile] train step (batch {BENCH_TRAIN[0]}): device kernel time {busy:.1f} ms "
+          f"against {wall_s * 1e3:.1f} ms of wall per step without the profiler, so device idle "
+          f"share about {max(0.0, 1 - busy / (wall_s * 1e3)):.3f}; forward {fwd:.1f} ms, "
+          f"backward {busy - fwd - opt:.1f} ms, optimizer {opt:.1f} ms (card: {card})",
+          flush=True)
+    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] train step kernels, {name}: {ms:8.3f} ms {ms / busy:6.1%}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[profile] train step top kernels: {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:5d} calls  {e.key[:100]}", flush=True)
+
+
+AGAINST_RUN = r"""
+import os, sys, tempfile, torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+card = cs._card_line()
+os.makedirs("build", exist_ok=True)
+with tempfile.TemporaryDirectory(dir="build") as work:
+    cs.train_steady_state(torch, card)
+    ckpt = os.path.join(work, "ckpt")
+    cs._save_random_pth(cs._cfg(), ckpt, torch)
+    odgt = cs._write_val_set(os.path.join(work, "val"), cs.EVAL_IMAGES, seed=1)
+    cs.steady_state(ckpt, os.path.dirname(odgt), odgt, torch, card)
+"""
+AGAINST_LINES = ("[steady]", "[profile] train step (", "[profile] batched pass without")
+
+
+def against(other: str) -> None:
+    """The steady states of this checkout and of ``other``, in turns."""
+    for name, root in (("other", other), ("this", HERE), ("this", HERE), ("other", other)):
+        tic = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", AGAINST_RUN], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        print(f"[against] {name} ({root}): rc {out.returncode}, "
+              f"{time.perf_counter() - tic:.0f} s", flush=True)
+        for line in out.stdout.splitlines():
+            if line.startswith(AGAINST_LINES):
+                print(f"[against] {name}: {line}", flush=True)
+        if out.returncode:
+            raise RuntimeError(f"the steady states of {root} failed:\n{out.stderr[-3000:]}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -960,6 +1359,9 @@ def main(argv=None) -> int:
     parser.add_argument("--compare", default=None, metavar="PATH",
                         help="also time a library built from this ppm_pool.cu against "
                              "the checkout's, in turns (phase 4)")
+    parser.add_argument("--against", default=None, metavar="DIR",
+                        help="only time the train step and the eval engines' steady state "
+                             "of this checkout and of the checkout at DIR, in turns")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -979,6 +1381,10 @@ def main(argv=None) -> int:
     print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"nvidia-smi: {card}", flush=True)
 
+    if args.against:
+        against(os.path.abspath(args.against))
+        return 0
+
     start = tic = time.perf_counter()
     ppm_pool._lib()
     print(f"[build] ppm_pool.cu built/loaded in {time.perf_counter() - tic:.2f} s", flush=True)
@@ -992,7 +1398,9 @@ def main(argv=None) -> int:
 
     max_err = check_kernel(ppm_pool, torch)
     valid_err = check_valid_kernel(ppm_pool, torch)
+    backward_err = check_backward_kernel(ppm_pool, torch)
     times = time_kernel(ppm_pool, torch, card, compare)
+    backward_times = time_backward(ppm_pool, torch, card)
 
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
@@ -1006,6 +1414,11 @@ def main(argv=None) -> int:
         levels_vs_pil(work, torch)
         dp_vs_host_f32(ckpt, val_dir, odgt, torch)
         zoo_card_vs_cpu(zoo_ckpts, torch)
+        train_launches, train_root, train_odgt = train_phase(work, torch, ppm_pool, card)
+        launches["dense"] += train_launches["dense"]
+        loss_falls(torch, train_root, train_odgt, card)
+        train_card_vs_cpu(torch, ppm_pool)
+        train_steady_state(torch, card)
 
     def numbers(case):
         # bf16 at the first timed case of the form; no single PyTorch call
@@ -1023,6 +1436,12 @@ def main(argv=None) -> int:
         {"name": "pyramid_pool_valid", **entry,
          "replaces": "semseg_tpu/ops/resize_dynamic.py:70",
          "launches": launches["valid"], "max_abs_err": valid_err, **numbers(TIME_CASES[1])},
+        {"name": "pyramid_pool_backward", **entry,
+         # No Pallas backward exists: JAX differentiates XLA's pool here.
+         "replaces": "semseg_tpu/ops/pool.py:55",
+         "launches": train_launches["backward"], "max_abs_err": backward_err,
+         **dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by"),
+                    backward_times[(BACKWARD_TIMED[0], "bfloat16")])), "library_ms": None},
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -79,6 +79,27 @@
 // sample's segments exits. Extents are clamped to the canvas and a bin's
 // area to at least 1, so an empty extent (no segments) pools to 0.
 //
+// Backward (ppm_pool_backward_kernel), for training through the dense
+// form: grad_x[n, h, w, c] = sum over the scales s and the bins (i, j) of
+// s that hold (h, w) of g_s[n, i, j, c] / area_s(i, j), summed in f32 in
+// the order scale 1, 2, 3, 6 and (i, j) row-major, rounded once to the
+// input dtype. The JAX package has no backward for its Pallas kernel (it
+// differentiates XLA's integral-image pool, semseg_tpu/ops/pool.py:55,
+// which gives the same sum). Each term is g times the bin's reciprocal
+// area, which the host computes and rounds once (50 floats passed with the
+// launch; a division per term called the IEEE division's slow path and
+// made the scalar f32 form spill). The sum is constant over each of the cells
+// above, since a cell lies wholly inside or outside every bin. A block
+// takes one cell of one sample and a tile of 32 * V channels: each thread
+// forms its V channels of the cell's gradient from the (at most a few
+// dozen) bin gradients that hold the cell, which the block's warps read
+// from L1/L2, then its warp stores that 16-byte vector to every pixel of
+// the cell it is given (pixel p to warp p % 8). What bounds it: the bytes
+// of grad_x written (N * H * W * C elements; the bin gradients are 50 * C
+// per sample); it reads nothing per pixel, so the stores are the only
+// traffic that grows with the map. No atomics: repeated runs agree bit for
+// bit. Odd C or unaligned pointers take scalar stores, as in pass 1.
+//
 // Built with nvcc into a shared library with a plain C interface; see
 // semseg_tpu_torch/ops/kernels/ppm_pool.py for the wrapper.
 
@@ -456,6 +477,163 @@ cudaError_t launch(const void* xv, void* o1, void* o2, void* o3, void* o6,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The V elements of a 16-byte load, widened to f32 (bf16 -> f32 is exact).
+__device__ __forceinline__ void unpack16(uint4 q, float (&f)[4]) {
+  f[0] = __uint_as_float(q.x);
+  f[1] = __uint_as_float(q.y);
+  f[2] = __uint_as_float(q.z);
+  f[3] = __uint_as_float(q.w);
+}
+__device__ __forceinline__ void unpack16(uint4 q, float (&f)[8]) {
+  const unsigned u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(u[k] << 16);
+    f[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+  }
+}
+
+// 1 / area of each of the 50 bins (scale 1, 2, 3, 6; (i, j) row-major).
+struct BinInv {
+  float v[50];
+};
+__host__ __device__ constexpr int first_bin(int s) {
+  return s == 1 ? 0 : s == 2 ? 1 : s == 3 ? 5 : 14;
+}
+
+// The gradient of one cell for this thread's V channels, from scale S's
+// bin gradients g (N, S, S, C): the bins (i, j) that hold the cell's
+// first pixel (r0, c0), in row-major order, each times 1 / its area.
+template <int S, typename T, bool kVec>
+__device__ __forceinline__ void add_scale(float (&acc)[16 / sizeof(T)],
+                                          const T* __restrict__ g, const BinInv& inv,
+                                          int n, int r0, int c0, int h, int w, int c,
+                                          int ch0, const bool (&live)[16 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    if (r0 < bin_start(i, h, S) || r0 >= bin_end(i, h, S)) continue;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if (c0 < bin_start(j, w, S) || c0 >= bin_end(j, w, S)) continue;
+      const float a = inv.v[first_bin(S) + i * S + j];
+      const T* p = g + (((size_t)n * S + i) * S + j) * c + ch0;
+      if constexpr (kVec) {
+        if (!live[0]) continue;
+        float e[V];
+        unpack16(__ldg(reinterpret_cast<const uint4*>(p)), e);
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] += e[k] * a;
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          if (live[k]) acc[k] += to_f32(p[k * 32]) * a;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint4 pack16(const float (&acc)[4]) {
+  return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]),
+                    __float_as_uint(acc[2]), __float_as_uint(acc[3]));
+}
+__device__ __forceinline__ unsigned pack_pair(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+__device__ __forceinline__ uint4 pack16(const float (&acc)[8]) {
+  return make_uint4(pack_pair(acc[0], acc[1]), pack_pair(acc[2], acc[3]),
+                    pack_pair(acc[4], acc[5]), pack_pair(acc[6], acc[7]));
+}
+
+// Backward: block (cell, channel tile, sample), 32 x kWarps threads.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(32 * kWarps)
+ppm_pool_backward_kernel(const T* __restrict__ g1, const T* __restrict__ g2,
+                         const T* __restrict__ g3, const T* __restrict__ g6,
+                         T* __restrict__ dx, const __grid_constant__ BinInv inv, int h,
+                         int w, int c, int grid_cs) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kTile = 32 * V;
+  __shared__ int rb[kCands], cb[kCands];
+  const int n = blockIdx.z;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  if (ty < 2) segment_bounds(ty == 0 ? h : w, ty == 0 ? rb : cb);
+  __syncthreads();
+  // The grid holds exactly the map's cells.
+  const int a = blockIdx.x / grid_cs, b = blockIdx.x % grid_cs;
+  const int r0 = rb[a], c0 = cb[b];
+  const int cw = cb[b + 1] - c0;
+  const int pixels = (rb[a + 1] - r0) * cw;
+  const int tile0 = blockIdx.y * kTile;
+  const int ch0 = tile0 + (kVec ? tx * V : tx);
+
+  bool live[V];  // which of this thread's channels exist
+#pragma unroll
+  for (int k = 0; k < V; ++k) live[k] = kVec ? ch0 < c : ch0 + k * 32 < c;
+  float acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = 0.f;
+  add_scale<1, T, kVec>(acc, g1, inv, n, r0, c0, h, w, c, ch0, live);
+  add_scale<2, T, kVec>(acc, g2, inv, n, r0, c0, h, w, c, ch0, live);
+  add_scale<3, T, kVec>(acc, g3, inv, n, r0, c0, h, w, c, ch0, live);
+  add_scale<6, T, kVec>(acc, g6, inv, n, r0, c0, h, w, c, ch0, live);
+
+  const size_t row_stride = (size_t)w * c;
+  T* base = dx + ((size_t)n * h + r0) * row_stride + (size_t)c0 * c + ch0;
+  if constexpr (kVec) {
+    if (!live[0]) return;
+    const uint4 q = pack16(acc);
+    for (int p = ty; p < pixels; p += kWarps)
+      *reinterpret_cast<uint4*>(base + (size_t)(p / cw) * row_stride +
+                                (size_t)(p % cw) * c) = q;
+  } else {
+    T v[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) store_from_f32(&v[k], acc[k]);
+    for (int p = ty; p < pixels; p += kWarps) {
+      T* px = base + (size_t)(p / cw) * row_stride + (size_t)(p % cw) * c;
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (live[k]) px[k * 32] = v[k];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* g1, const void* g2, const void* g3,
+                            const void* g6, void* dx, int n, int h, int w, int c,
+                            cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kTile = 32 * V;
+  const bool vec = c % V == 0 &&
+                   ((reinterpret_cast<uintptr_t>(g1) | reinterpret_cast<uintptr_t>(g2) |
+                     reinterpret_cast<uintptr_t>(g3) | reinterpret_cast<uintptr_t>(g6) |
+                     reinterpret_cast<uintptr_t>(dx)) % 16) == 0;
+  BinInv inv;
+  for (int si = 0; si < 4; ++si) {
+    const int sc = scale_of(si);
+    for (int i = 0; i < sc; ++i)
+      for (int j = 0; j < sc; ++j) {
+        const int area = (bin_end(i, h, sc) - bin_start(i, h, sc)) *
+                         (bin_end(j, w, sc) - bin_start(j, w, sc));
+        inv.v[first_bin(sc) + i * sc + j] = (float)(1.0 / area);
+      }
+  }
+  const int grid_cs = num_segments(w);
+  dim3 grid(num_segments(h) * grid_cs, (c + kTile - 1) / kTile, n);
+  const T *p1 = static_cast<const T*>(g1), *p2 = static_cast<const T*>(g2),
+          *p3 = static_cast<const T*>(g3), *p6 = static_cast<const T*>(g6);
+  T* out = static_cast<T*>(dx);
+  if (vec)
+    ppm_pool_backward_kernel<T, true><<<grid, dim3(32, kWarps), 0, stream>>>(
+        p1, p2, p3, p6, out, inv, h, w, c, grid_cs);
+  else
+    ppm_pool_backward_kernel<T, false><<<grid, dim3(32, kWarps), 0, stream>>>(
+        p1, p2, p3, p6, out, inv, h, w, c, grid_cs);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -485,6 +663,20 @@ int ppm_pool_launch(const void* x, void* o1, void* o2, void* o3, void* o6,
     return (int)launch<bf16, false>(x, o1, o2, o3, o6, sc, v, n, h, w, c, s);
   if (dtype == 1)
     return (int)launch<bf16, true>(x, o1, o2, o3, o6, sc, v, n, h, w, c, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Input gradient of the dense form: g1, g2, g3, g6 are the (N, s, s, C)
+// contiguous output gradients, dx the (N, H, W, C) contiguous result, in
+// the dtype's code as above. Returns the cudaError_t of the launch.
+int ppm_pool_backward_launch(const void* g1, const void* g2, const void* g3,
+                             const void* g6, void* dx, int n, int h, int w, int c,
+                             int dtype, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_backward<float>(g1, g2, g3, g6, dx, n, h, w, c, s);
+  if (dtype == 1)
+    return (int)launch_backward<__nv_bfloat16>(g1, g2, g3, g6, dx, n, h, w, c, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,12 @@
-from .dataset import BaseDataset, PyramidBuilder, TestDataset, ValDataset, parse_odgt
-from .loader import EvalLoader
+from .dataset import (
+    BaseDataset,
+    PyramidBuilder,
+    TestDataset,
+    TrainDataset,
+    ValDataset,
+    parse_odgt,
+)
+from .loader import EvalLoader, TrainLoader
 from .transforms import (
     img_transform,
     imresize,
@@ -11,10 +18,12 @@ from .transforms import (
 __all__ = [
     "BaseDataset",
     "PyramidBuilder",
+    "TrainDataset",
     "ValDataset",
     "TestDataset",
     "parse_odgt",
     "EvalLoader",
+    "TrainLoader",
     "img_transform",
     "imresize",
     "segm_transform",

@@ -1,17 +1,70 @@
-"""Threaded prefetching eval loader (``semseg_tpu/data/loader.py``
-``EvalLoader``, the port's own copy).
+"""Threaded prefetching loaders (``semseg_tpu/data/loader.py``, the port's
+own copy).
 
 Replaces the reference's forked dataloader stack with a compact thread
 pool. PIL decode/resize and numpy normalization release the GIL for their
 hot loops, so threads keep the device fed without fork overhead.
-``EvalLoader`` is an index-ordered prefetch of ``ValDataset``/``TestDataset``
-items, preserving deterministic output order. ``TrainLoader`` waits for the
-training slice.
+
+* ``TrainLoader`` — worker threads, each with its own seeded
+  ``TrainDataset`` stream, push batches into a bounded queue; a worker's
+  error is raised on the consumer.
+* ``EvalLoader`` — index-ordered prefetch of ``ValDataset``/``TestDataset``
+  items, preserving deterministic output order.
 """
 
 from __future__ import annotations
 
+import queue
 import threading
+
+
+class TrainLoader:
+    def __init__(self, make_dataset, num_workers: int = 4, prefetch: int = 8):
+        """``make_dataset(worker_id) -> TrainDataset``."""
+        self.num_workers = max(1, num_workers)
+        self.queue: "queue.Queue" = queue.Queue(maxsize=max(2, prefetch))
+        self._stop = threading.Event()
+        self._errors: list = []
+        self._threads = [threading.Thread(target=self._worker, args=(make_dataset, w),
+                                          daemon=True)
+                         for w in range(self.num_workers)]
+        for t in self._threads:
+            t.start()
+
+    def _worker(self, make_dataset, worker_id):
+        try:
+            ds = make_dataset(worker_id)
+            while not self._stop.is_set():
+                batch = ds.next_batch()
+                while not self._stop.is_set():
+                    try:
+                        self.queue.put(batch, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+        except Exception as e:
+            self._errors.append(e)
+
+    def __iter__(self):
+        empty = queue.Empty  # bound here: module globals may be gone at shutdown
+        while True:
+            # Checked before blocking: a dead worker's error surfaces even
+            # while the others keep the queue fed.
+            if self._errors:
+                raise RuntimeError("TrainLoader worker failed") from self._errors[0]
+            try:
+                yield self.queue.get(timeout=1.0)
+            except empty:
+                if not any(t.is_alive() for t in self._threads):
+                    if self._errors:
+                        raise RuntimeError("TrainLoader worker failed") from self._errors[0]
+                    raise RuntimeError("All TrainLoader workers exited")
+
+    def close(self):
+        """Stops the workers and waits for them (each finishes its batch)."""
+        self._stop.set()
+        for t in self._threads:
+            t.join()
 
 
 class EvalLoader:

@@ -13,8 +13,11 @@ family, from an explicit ``torch.Generator``: encoder convs normal with std
 ``sqrt(2 / fan_in)``, decoder BN bias 1e-4, classifier biases 0.
 
 A built module is in eval mode, in ``torch.channels_last`` and on
-``device`` (the card unless the caller asks for another); ``weights`` loads
-a reference-format ``.pth`` strictly.
+``device`` (the card unless the caller asks for another), until a trainer
+calls ``.train()``; ``weights`` loads a reference-format ``.pth`` strictly.
+``build_model`` also sets the training forward's ``deep_sup_scale``
+(``TRAIN.deep_sup_scale`` for the ``*deepsup`` decoders) and ``fix_bn``
+(``TRAIN.fix_bn``).
 """
 
 from __future__ import annotations
@@ -134,7 +137,8 @@ class ModelBuilder:
     @staticmethod
     def build_model(cfg, *, dtype: torch.dtype | None = None, device="cuda",
                     seed: int = 0) -> SegmentationModel:
-        """The full model from a config node, weights from cfg.MODEL."""
+        """The full model from a config node, weights from cfg.MODEL, the
+        training forward's settings from cfg.TRAIN."""
         if dtype is None:
             dtype = getattr(torch, cfg.TPU.compute_dtype)
         generator = torch.Generator().manual_seed(seed)
@@ -148,4 +152,7 @@ class ModelBuilder:
             num_class=cfg.DATASET.num_class, weights=cfg.MODEL.weights_decoder,
             encoder_arch=cfg.MODEL.arch_encoder, device=device, generator=generator,
         )
-        return SegmentationModel(encoder, decoder)
+        deep_sup = (cfg.TRAIN.deep_sup_scale
+                    if cfg.MODEL.arch_decoder.lower().endswith("deepsup") else None)
+        return SegmentationModel(encoder, decoder, deep_sup_scale=deep_sup,
+                                 fix_bn=bool(cfg.TRAIN.fix_bn)).eval()

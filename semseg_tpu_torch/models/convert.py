@@ -1,9 +1,11 @@
 """Weights bridge: reference ``.pth`` files and the JAX package's variables.
 
-The port's ``state_dict`` keys are the reference's, so a reference-format
-file loads as it is once the reference SyncBN's accumulator buffers
-(``_tmp_running_mean``, ``_tmp_running_var``, ``_running_iter``), which
-``nn.BatchNorm2d`` does not hold, are dropped (``load_reference_pth``).
+The port's ``state_dict`` keys are the reference's, ``_running_iter`` (the
+SyncBN's bias-correction accumulator) included, so a reference-format file
+loads as it is once the two raw accumulator buffers ``_tmp_running_mean``
+and ``_tmp_running_var`` (``running * iter``, which the port does not hold)
+are dropped (``load_reference_pth``). ``reference_state_dict`` writes them
+back, so the trainer's ``.pth`` pairs are the reference's format.
 
 ``state_dicts_from_jax`` maps the JAX package's flax variables onto the same
 keys, for every family, with the path tables of
@@ -12,8 +14,10 @@ keys, for every family, with the path tables of
 written out again here, without JAX:
 
 * conv kernels HWIO → OIHW;
-* BN ``scale``/``bias`` → ``weight``/``bias``, ``mean``/``var`` →
-  ``running_mean``/``running_var``; ``num_batches_tracked`` is 0.
+* BN ``scale``/``bias`` → ``weight``/``bias``, ``mean``/``var``/``iter``
+  → ``running_mean``/``running_var``/``_running_iter`` (shape (1,)), so a
+  JAX train state taken mid-training maps onto the port exactly;
+  ``num_batches_tracked`` is 0.
 """
 
 from __future__ import annotations
@@ -24,13 +28,25 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-SYNCBN_ACCUMULATORS = ("_tmp_running_mean", "_tmp_running_var", "_running_iter")
+SYNCBN_ACCUMULATORS = ("_tmp_running_mean", "_tmp_running_var")
 
 
 def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     """A reference-format state_dict file, ready for a strict load."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     return {k: v for k, v in state.items() if not k.endswith(SYNCBN_ACCUMULATORS)}
+
+
+def reference_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A module's ``state`` on the CPU with the reference SyncBN's raw
+    accumulators added (``_tmp_running_* = running_* * _running_iter``), as
+    the reference's trainer saves its ``.pth`` files."""
+    out = {k: v.detach().cpu() for k, v in state.items()}
+    for key in [k for k in out if k.endswith("._running_iter")]:
+        prefix = key[: -len("_running_iter")]
+        for stat in ("mean", "var"):
+            out[f"{prefix}_tmp_running_{stat}"] = out[f"{prefix}running_{stat}"] * out[key]
+    return out
 
 
 def _cb(path, i: int) -> int:
@@ -153,7 +169,8 @@ def _component(variables, component: str, prefix_fn) -> Dict[str, torch.Tensor]:
                 value = np.transpose(arr, (3, 2, 0, 1))
                 key = f"{prefix}.weight"
             elif leaf == "iter":
-                continue  # no counterpart in nn.BatchNorm2d
+                key = f"{prefix_fn(mod_path)}._running_iter"
+                value = np.reshape(arr, (1,))
             else:
                 name = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                         "var": "running_var"}[leaf]

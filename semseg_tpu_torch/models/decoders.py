@@ -1,12 +1,20 @@
-"""Decoder zoo (``semseg_tpu/models/decoders.py``), NCHW, inference path:
-C1, C1DeepSup, PPM, PPMDeepsup and UPerNet.
+"""Decoder zoo (``semseg_tpu/models/decoders.py``), NCHW: C1, C1DeepSup,
+PPM, PPMDeepsup and UPerNet.
 
 With ``seg_size=(H, W)`` the logits are cast to float32, resized bilinearly
 to ``seg_size`` and turned into softmax probabilities, as the reference's
 ``segSize`` protocol does. With ``seg_size=None`` they come back as float32
-logits at decoder resolution (the bucketed engines' call). The four
+logits at decoder resolution (the bucketed engines' call, and the training
+forward). A deep-supervision decoder in training mode (``.train()``, the
+JAX package's ``train=True``) returns the pair ``(logits,
+logits_deepsup)``, both float32; its branch runs off conv4 (with
+``Dropout2d(0.1)`` in PPMDeepsup, none in C1DeepSup). Batch norm and
+dropout follow their own modules' modes, so under ``TRAIN.fix_bn`` (BN and
+dropout in eval, ``SegmentationModel.train``) the deep-supervision branch
+still runs: the JAX package's ``train`` / ``norm_train`` split. The four
 pyramid pools of PPM and UPerNet run in one call of the hand-written kernel
-``ops.kernels.pyramid_pool`` on the NHWC view of conv5.
+``ops.kernels.pyramid_pool`` on the NHWC view of conv5; its dense form has
+a hand-written backward, so training gets the pools' gradient.
 
 ``valid_hw`` (per feature map, (N, 2) int32: each sample's true extent
 inside a padded bucket canvas) makes the pyramid branches pad-aware, as
@@ -20,9 +28,9 @@ Slot names follow the reference: ``cbr`` and ``cbr_deepsup`` are
 ``conv3x3_bn_relu`` Sequentials; PPM's ``ppm.{i}`` is ``Sequential(pool,
 conv, BN, ReLU)`` and its ``conv_last`` ``Sequential(conv, BN, ReLU,
 Dropout2d, conv)``; UPerNet's ``ppm_conv.{i}``, ``fpn_in.{i}``,
-``fpn_out.{i}.0`` and ``conv_last = Sequential(conv3x3_bn_relu, conv)``. The
-deep-supervision parameters exist so that checkpoints load strict;
-inference never runs them.
+``fpn_out.{i}.0`` and ``conv_last = Sequential(conv3x3_bn_relu, conv)``.
+Inference never runs the deep-supervision parameters; they exist in every
+mode so that checkpoints load strict.
 """
 
 from __future__ import annotations
@@ -61,6 +69,19 @@ def _onto_map(y, hw, valid):
     return upsample_grid_valid(y.permute(0, 2, 3, 1), hw, valid).permute(0, 3, 1, 2)
 
 
+def _with_deepsup(module, x, conv4, seg_size, valid_hw):
+    """``x`` as ``_out`` gives it, paired in training with the
+    deep-supervision logits of ``conv4`` (``module.cbr_deepsup`` →
+    ``dropout_deepsup`` where the decoder has one → ``conv_last_deepsup``)."""
+    if not module.training or seg_size is not None or valid_hw is not None:
+        return _out(x, seg_size)
+    ds = module.cbr_deepsup(conv4)
+    if hasattr(module, "dropout_deepsup"):
+        ds = module.dropout_deepsup(ds)
+    ds = module.conv_last_deepsup(ds)
+    return _out(x, None), ds.to(acc_dtype(ds.dtype))
+
+
 def _pyramid_grids(conv5, valid):
     """The four pyramid grids of NCHW ``conv5``, NCHW views, in one kernel
     call (over each sample's valid region with ``valid``)."""
@@ -82,12 +103,17 @@ class C1(nn.Module):
 
 
 class C1DeepSup(C1):
-    """C1 with the deep-supervision branch off conv4 (models.py:327-359)."""
+    """C1 with the deep-supervision branch off conv4, no dropout
+    (models.py:327-359)."""
 
     def __init__(self, num_class: int = 150, fc_dim: int = 2048):
         super().__init__(num_class, fc_dim)
         self.cbr_deepsup = ConvBN(fc_dim // 2, fc_dim // 4, 3)
         self.conv_last_deepsup = Conv2d(fc_dim // 4, num_class, 1)
+
+    def forward(self, conv_out, seg_size=None, valid_hw=None):
+        x = self.conv_last(self.cbr(conv_out[-1]))
+        return _with_deepsup(self, x, conv_out[-2], seg_size, valid_hw)
 
 
 class PPM(nn.Module):
@@ -113,12 +139,15 @@ class PPM(nn.Module):
             Conv2d(512, num_class, 1),
         )
 
-    def forward(self, conv_out, seg_size=None, valid_hw=None):
+    def _trunk(self, conv_out, valid_hw):
         conv5 = conv_out[-1]
         valid = None if valid_hw is None else valid_hw[-1]
         pyramid = [conv5] + [_onto_map(branch[1:](p), conv5.shape[2:], valid)
                              for branch, p in zip(self.ppm, _pyramid_grids(conv5, valid))]
-        return _out(self.conv_last(torch.cat(pyramid, dim=1)), seg_size)
+        return self.conv_last(torch.cat(pyramid, dim=1))
+
+    def forward(self, conv_out, seg_size=None, valid_hw=None):
+        return _out(self._trunk(conv_out, valid_hw), seg_size)
 
 
 class PPMDeepsup(PPM):
@@ -129,6 +158,10 @@ class PPMDeepsup(PPM):
         self.cbr_deepsup = ConvBN(fc_dim // 2, fc_dim // 4, 3)
         self.dropout_deepsup = Dropout2d(0.1)
         self.conv_last_deepsup = Conv2d(fc_dim // 4, num_class, 1)
+
+    def forward(self, conv_out, seg_size=None, valid_hw=None):
+        x = self._trunk(conv_out, valid_hw)
+        return _with_deepsup(self, x, conv_out[-2], seg_size, valid_hw)
 
 
 class UPerNet(nn.Module):

@@ -2,7 +2,8 @@
 
 Parameters and batch-norm statistics stay float32. A convolution runs in the
 dtype of its input (the compute dtype, bfloat16 by default): its weight is
-cast at the call, as flax casts it under ``dtype=``. Batch norm computes in
+cast at the call, as flax casts it under ``dtype=``, and the gradient flows
+back through the cast to the float32 parameter. Batch norm computes in
 float32 and casts back to the input dtype.
 
 Module and slot names follow the reference's ``state_dict`` keys, so its
@@ -13,13 +14,43 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
 from torch import nn
 import torch.nn.functional as F
 
-from semseg_tpu_torch.ops.norm import batch_norm_inference
+from semseg_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train
 
-# Channel dropout, identity in eval (torch's own module has the semantics).
-Dropout2d = nn.Dropout2d
+
+class Dropout2d(nn.Module):
+    """Channel dropout (``nn.Dropout2d``'s semantics): in training, each
+    (sample, channel) map is zeroed with probability ``p`` and the rest are
+    scaled by ``1 / (1 - p)``; identity in eval.
+
+    The mask is drawn from ``generator``, a CPU ``torch.Generator`` that the
+    trainer owns and seeds per step (``parallel.train_step``), and then
+    moved to the input's device, so a run is reproducible and the card
+    draws the same masks as the CPU. Without a generator the global CPU
+    generator is used.
+    """
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape[0], x.shape[1], generator=self.generator) >= self.p
+        if x.is_cuda:
+            # A copy from pinned memory does not make the host wait for the
+            # card's queue to drain, as one from pageable memory does.
+            keep = keep.pin_memory()
+        keep = keep.to(x.device, non_blocking=True).view(x.shape[0], x.shape[1], 1, 1)
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+    def extra_repr(self):
+        return f"p={self.p}"
 
 
 class Conv2d(nn.Conv2d):
@@ -31,21 +62,43 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference batch norm on running statistics, f32 math.
+    """The reference SyncBN on one device, f32 math (``ops.norm``).
 
-    The buffers are ``nn.BatchNorm2d``'s, so reference keys load as they
-    are. Training statistics come with the training port.
+    Eval mode normalises with the running statistics; training mode with
+    the batch's (``batch_norm_train``) and advances the running statistics
+    by the reference's bias-corrected EMA (momentum 0.001).
+
+    Buffers: ``nn.BatchNorm2d``'s, plus ``_running_iter`` (shape (1,),
+    default 1), the EMA's bias-correction accumulator under the reference's
+    own name (the JAX package's ``batch_stats.iter``). A state_dict without
+    ``_running_iter`` (a file written before it existed) loads strict with 1
+    filled in, the JAX package's initial value.
     """
 
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.001):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.register_buffer("_running_iter", torch.ones(1))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        key = prefix + "_running_iter"
+        if key not in state_dict:
+            state_dict[key] = torch.ones(1)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "batch-norm training is not ported yet; call .eval()"
+        if not self.training:
+            return batch_norm_inference(
+                x, self.weight, self.bias, self.running_mean, self.running_var,
+                eps=self.eps,
             )
-        return batch_norm_inference(
+        y, mean, var, it = batch_norm_train(
             x, self.weight, self.bias, self.running_mean, self.running_var,
-            eps=self.eps,
+            self._running_iter, eps=self.eps, momentum=self.momentum,
         )
+        self.running_mean.copy_(mean)
+        self.running_var.copy_(var)
+        self._running_iter.copy_(it)
+        return y
 
 
 _ACTS = {"relu": F.relu, "relu6": F.relu6}

@@ -17,8 +17,20 @@ is ``ops.resize_dynamic.adaptive_avg_pool2d_valid`` at the four scales
 (``semseg_tpu/ops/resize_dynamic.py:70``, f32 einsums in the JAX package).
 The same kernel reads each sample's extent from the device.
 
-``pyramid_pool`` takes the plain version only for a tensor on the CPU. For a
-CUDA tensor it launches the kernel or raises.
+The dense form is a ``torch.autograd.Function``: its gradient is a second
+hand-written kernel (``ppm_pool_backward_kernel`` in the same source), which
+writes ``grad_x[n, h, w, c] = sum over the scales s and the bins (i, j) of s
+that hold (h, w) of g_s[n, i, j, c] / area_s(i, j)``. The gradient is
+constant over each of the forward's cells, so one block computes a cell's
+vector from the 50 small bin gradients and stores it to every pixel of the
+cell with 16-byte stores: bound by the bytes of ``grad_x`` written. The JAX
+package has no backward for its Pallas kernel; it differentiates XLA's
+integral-image pool (``semseg_tpu/ops/pool.py:55``), which computes the
+same sum. The pad-aware form is inference only (the JAX package trains on
+unmasked canvases): with ``valid_hw``, an input that requires grad raises.
+
+``pyramid_pool`` takes the plain versions (forward and backward) only for a
+tensor on the CPU. For a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -38,9 +50,11 @@ SOURCES = ("ppm_pool.cu",)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches made by ``pyramid_pool`` (CUDA tensors only): the dense
-#: form, and the pad-aware form (``valid_hw`` given).
+#: form, the pad-aware form (``valid_hw`` given), and the dense form's
+#: backward.
 LAUNCHES = 0
 VALID_LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 
 
 def pyramid_pool_plain(x: torch.Tensor, scales: Sequence[int] = SCALES,
@@ -55,6 +69,29 @@ def pyramid_pool_plain(x: torch.Tensor, scales: Sequence[int] = SCALES,
         F.adaptive_avg_pool2d(xf, s).permute(0, 2, 3, 1).to(x.dtype).contiguous()
         for s in scales
     )
+
+
+def bin_bounds(i: int, size: int, s: int) -> Tuple[int, int]:
+    """Bin ``i`` of ``s`` over ``size``: ``[floor(i*size/s), ceil((i+1)*size/s))``."""
+    return (i * size) // s, -(-((i + 1) * size) // s)
+
+
+def pyramid_pool_backward_plain(grads: Sequence[torch.Tensor], hw: Tuple[int, int]):
+    """The input gradient of the dense form, summed explicitly in f32 over
+    the scales and each scale's bins (i, j) in order, rounded once to the
+    gradients' dtype: (N, H, W, C) from the four (N, s, s, C) ``grads``."""
+    h, w = hw
+    n, _, _, c = grads[0].shape
+    acc = torch.zeros((n, h, w, c), dtype=acc_dtype(grads[0].dtype), device=grads[0].device)
+    for s, g in zip(SCALES, grads):
+        g = g.to(acc.dtype)
+        for i in range(s):
+            h0, h1 = bin_bounds(i, h, s)
+            for j in range(s):
+                w0, w1 = bin_bounds(j, w, s)
+                term = g[:, i, j, :] / ((h1 - h0) * (w1 - w0))
+                acc[:, h0:h1, w0:w1, :] += term[:, None, None, :]
+    return acc.to(grads[0].dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,6 +110,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ppm_pool_launch.restype = ci
     lib.ppm_pool_scratch_floats.argtypes = [ci] * 4
     lib.ppm_pool_scratch_floats.restype = ctypes.c_longlong
+    if hasattr(lib, "ppm_pool_backward_launch"):  # an older source has none
+        lib.ppm_pool_backward_launch.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+        lib.ppm_pool_backward_launch.restype = ci
     return lib
 
 
@@ -101,6 +141,47 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor,
     return tuple(outs)
 
 
+def launch_backward(lib: ctypes.CDLL, grads: Sequence[torch.Tensor],
+                    hw: Tuple[int, int]) -> torch.Tensor:
+    """One launch of ``lib``'s backward kernel on checked, contiguous CUDA
+    gradients, uncounted; returns the (N, H, W, C) input gradient."""
+    g = grads[0]
+    n, _, _, c = g.shape
+    out = torch.empty((n, *hw, c), dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        err = lib.ppm_pool_backward_launch(
+            *(t.data_ptr() for t in grads), out.data_ptr(), n, hw[0], hw[1], c,
+            _DTYPE_CODES[g.dtype], torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ppm_pool backward kernel launch failed: cudaError {err}")
+    return out
+
+
+class _DensePool(torch.autograd.Function):
+    """The dense form with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        global LAUNCHES
+        ctx.hw = tuple(x.shape[1:3])
+        if x.device.type == "cpu":
+            return pyramid_pool_plain(x)
+        outs = launch(_lib(), x)
+        LAUNCHES += 1
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        global BACKWARD_LAUNCHES
+        grads = [g.contiguous() for g in grads]
+        if grads[0].device.type == "cpu":
+            return pyramid_pool_backward_plain(grads, ctx.hw)
+        out = launch_backward(_lib(), grads, ctx.hw)
+        BACKWARD_LAUNCHES += 1
+        return out
+
+
 def pyramid_pool(
     x: torch.Tensor, scales: Sequence[int] = SCALES,
     valid_hw: Optional[torch.Tensor] = None,
@@ -110,17 +191,24 @@ def pyramid_pool(
     Returns a tuple of (N, s, s, C) tensors in ``x.dtype`` equal to
     ``adaptive_avg_pool2d`` at each scale, or with ``valid_hw`` ((N, 2)
     int32, each sample's extent, within the canvas) to
-    ``adaptive_avg_pool2d_valid``. On a CUDA tensor ``x`` must be float32
-    or bfloat16 and NHWC-contiguous (``permute(0, 2, 3, 1)`` of a
-    channels_last map) and ``valid_hw`` a contiguous int32 tensor on the
-    same card; the kernel runs on the current stream and nothing is
-    synchronised.
+    ``adaptive_avg_pool2d_valid``. The dense form is differentiable (its
+    backward is the second kernel); the pad-aware form raises if ``x``
+    requires grad. On a CUDA tensor ``x`` must be float32 or bfloat16 and
+    NHWC-contiguous (``permute(0, 2, 3, 1)`` of a channels_last map) and
+    ``valid_hw`` a contiguous int32 tensor on the same card; the kernels run
+    on the current stream and nothing is synchronised.
     """
-    global LAUNCHES, VALID_LAUNCHES
+    global VALID_LAUNCHES
     if tuple(scales) != SCALES:
         raise ValueError(f"pyramid_pool computes scales {SCALES}, got {tuple(scales)}")
+    if valid_hw is not None and x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            "pyramid_pool: the pad-aware form (valid_hw) has no gradient; the "
+            "training forward pools the whole canvas, as the JAX package does"
+        )
     if x.device.type == "cpu":
-        return pyramid_pool_plain(x, scales, valid_hw)
+        return pyramid_pool_plain(x, scales, valid_hw) if valid_hw is not None \
+            else _DensePool.apply(x)
     if x.device.type != "cuda":
         raise ValueError(f"pyramid_pool: unsupported device {x.device}")
     if x.dim() != 4:
@@ -144,9 +232,8 @@ def pyramid_pool(
             f"on {x.device}; got {tuple(valid_hw.shape)} {valid_hw.dtype} on "
             f"{valid_hw.device}"
         )
-    outs = launch(_lib(), x, valid_hw)
     if valid_hw is None:
-        LAUNCHES += 1
-    else:
-        VALID_LAUNCHES += 1
+        return _DensePool.apply(x)
+    outs = launch(_lib(), x, valid_hw)
+    VALID_LAUNCHES += 1
     return outs

@@ -1,9 +1,21 @@
-"""Inference batch norm (``semseg_tpu/ops/norm.py::batch_norm_inference``).
+"""Batch norm with the reference SyncBN's rules (``semseg_tpu/ops/norm.py``).
 
-``(x - running_mean) / sqrt(running_var + eps) * weight + bias``, folded into
-one affine computed in the accumulation dtype and cast back to ``x.dtype``.
-The training half (clamped-eps normalisation, bias-corrected EMA) comes with
-the training port.
+Inference: ``(x - running_mean) / sqrt(running_var + eps) * weight + bias``,
+folded into one affine computed in the accumulation dtype and cast back to
+``x.dtype`` (``F.batch_norm``'s semantics).
+
+Training (``batch_norm_train``) keeps the reference's quirks exactly, which
+``F.batch_norm`` in training mode does not:
+
+* statistics in float32 over a bfloat16 input, from one pass of ``s`` and
+  ``ss`` with ``sumvar = ss - s * mean``;
+* normalisation by ``rsqrt(max(biased_var, eps))``, not ``sqrt(var + eps)``;
+* momentum 0.001 and a bias-corrected EMA through the accumulator ``iter``
+  (``iter := iter * (1 - m) + 1``, ``running := (running * iter * (1 - m) +
+  batch_stat) / new_iter``), with the *unbiased* variance entering it;
+* more than one element per channel, else ``ValueError``.
+
+The gradient is autograd's through these ops.
 """
 
 from __future__ import annotations
@@ -20,3 +32,38 @@ def batch_norm_inference(x, weight, bias, running_mean, running_var, *, eps=1e-5
     w = (weight * inv).to(adt).view(1, -1, 1, 1)
     b = (bias - running_mean * weight * inv).to(adt).view(1, -1, 1, 1)
     return (x.to(adt) * w + b).to(x.dtype)
+
+
+def batch_norm_train(x, weight, bias, running_mean, running_var, running_iter, *,
+                     eps=1e-5, momentum=0.001):
+    """Training batch norm over the channels of NCHW ``x``.
+
+    Returns ``(y, new_running_mean, new_running_var, new_running_iter)``;
+    the new statistics carry no gradient.
+    """
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    if n <= 1:
+        raise ValueError(
+            f"batch_norm_train needs >1 element per channel, got {n} (input "
+            f"{tuple(x.shape)}); a batch of 1 reaching a 1x1 feature map cannot "
+            "estimate batch statistics (the reference asserts the same)"
+        )
+    adt = acc_dtype(x.dtype)
+    xf = x.to(adt)
+    s = xf.sum(dim=(0, 2, 3))
+    ss = (xf * xf).sum(dim=(0, 2, 3))
+    mean = s / n
+    sumvar = ss - s * mean
+    bias_var = sumvar / n
+    inv_std = torch.rsqrt(torch.clamp(bias_var, min=eps))
+
+    with torch.no_grad():
+        keep = 1.0 - momentum
+        unbias_var = sumvar / (n - 1.0)
+        new_iter = running_iter * keep + 1.0
+        new_mean = (running_mean * running_iter * keep + mean) / new_iter
+        new_var = (running_var * running_iter * keep + unbias_var) / new_iter
+
+    y = (xf - mean.view(1, -1, 1, 1)) * (inv_std * weight).view(1, -1, 1, 1) \
+        + bias.view(1, -1, 1, 1)
+    return y.to(x.dtype), new_mean, new_var, new_iter

@@ -10,15 +10,25 @@ the JAX package's (N, H, W, 3) layout here; the NHWC result seen through
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from semseg_tpu_torch.data.transforms import MEAN, STD
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(device: torch.device):
+    """MEAN and STD as float32 tensors on ``device``, copied there once: a
+    host-to-device copy from pageable memory waits for the card's queue to
+    drain, which would stall every train step and eval chunk."""
+    return (torch.tensor(MEAN, dtype=torch.float32, device=device),
+            torch.tensor(STD, dtype=torch.float32, device=device))
+
+
 def normalize_255(x: torch.Tensor) -> torch.Tensor:
     """float32 pixels in [0, 255] (..., 3) → ImageNet-normalized."""
-    mean = torch.tensor(MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(STD, dtype=torch.float32, device=x.device)
+    mean, std = _mean_std(x.device)
     return (x / 255.0 - mean) / std
 
 

@@ -1,0 +1,31 @@
+"""Training on one card (``semseg_tpu/parallel``): the train state and step,
+the device prefetcher and the per-worker data seed. Meshes, collectives
+and multi-card training are ROADMAP item 11."""
+
+from .distributed import process_seed
+from .mesh import device_prefetch
+from .train_step import (
+    TrainState,
+    create_train_state,
+    current_lrs,
+    decay_mask,
+    dropout_generator,
+    make_optimizer,
+    poly_schedule,
+    stack_microbatches,
+    train_step,
+)
+
+__all__ = [
+    "TrainState",
+    "create_train_state",
+    "current_lrs",
+    "decay_mask",
+    "device_prefetch",
+    "dropout_generator",
+    "make_optimizer",
+    "poly_schedule",
+    "process_seed",
+    "stack_microbatches",
+    "train_step",
+]

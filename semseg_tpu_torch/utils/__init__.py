@@ -10,6 +10,7 @@ from __future__ import annotations
 import csv
 import logging
 import os
+import re
 import sys
 from functools import lru_cache
 
@@ -28,6 +29,7 @@ __all__ = [
     "load_colors",
     "load_class_names",
     "unique",
+    "parse_devices",
 ]
 
 _REPO_DATA = os.path.join(
@@ -105,3 +107,22 @@ def colorEncode(labelmap, colors=None, mode="RGB"):
     if mode == "BGR":
         return out[..., ::-1]
     return out
+
+
+def parse_devices(input_devices):
+    """Parse device strings: '0-3', '0,1,2', 'gpu0' (utils.py:159-200)."""
+    ret = []
+    for d in input_devices.split(","):
+        d = d.strip()
+        if d.lower() == "cpu":
+            ret.append("cpu")
+            continue
+        m = re.match(r"^(?:(?:gpu|tpu)?(\d+))(?:-(?:(?:gpu|tpu)?(\d+)))?$", d.lower())
+        if m is None:
+            raise ValueError(f"Cannot parse device: {d!r}")
+        lo = int(m.group(1))
+        hi = int(m.group(2)) if m.group(2) is not None else lo
+        if hi < lo:
+            raise ValueError("the end device must be larger than the start device")
+        ret.extend(f"gpu{i}" for i in range(lo, hi + 1))
+    return ret

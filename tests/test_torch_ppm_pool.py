@@ -191,3 +191,60 @@ def test_kernel_repeats_bit_for_bit(extents, dtype):
     v = None if extents is None else torch.tensor(extents, dtype=torch.int32, device="cuda")
     for a, b in zip(ppm_pool.pyramid_pool(x, valid_hw=v), ppm_pool.pyramid_pool(x, valid_hw=v)):
         assert torch.equal(a, b)
+
+
+def _backward_tol(dtype):
+    # f32: the kernel and the plain version sum the same terms in the same
+    # order; the kernel multiplies by the area's reciprocal, the plain
+    # version divides by the area (PyTorch on the card multiplies by its
+    # reciprocal too), one rounding apart per term. bf16: one bf16 ulp.
+    return dict(atol=1e-6, rtol=1e-6) if dtype == torch.float32 else dict(atol=1e-6, rtol=8e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 80, 128, 2048), (8, 56, 76, 2048), (2, 13, 17, 250),
+                                   (1, 4, 5, 2048), (1, 1, 1, 512), (2, 13, 13, 2048)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_backward_kernel_matches_plain_on_card(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    n, h, w, c = shape
+    grads = [torch.from_numpy(_input((n, s, s, c), seed=8 + s)).to("cuda", dtype) for s in SCALES]
+    x = torch.zeros(shape, device="cuda", dtype=dtype, requires_grad=True)
+    before = ppm_pool.BACKWARD_LAUNCHES
+    torch.autograd.backward(ppm_pool.pyramid_pool(x), grads)
+    torch.cuda.synchronize()
+    assert ppm_pool.BACKWARD_LAUNCHES == before + 1
+    assert x.grad.is_contiguous() and x.grad.dtype == dtype
+    ref = ppm_pool.pyramid_pool_backward_plain(grads, (h, w))
+    torch.testing.assert_close(x.grad.float(), ref.float(), **_backward_tol(dtype))
+    again = ppm_pool.launch_backward(ppm_pool._lib(), grads, (h, w))
+    assert torch.equal(again, x.grad)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_takes_unaligned_gradients():
+    """Gradients whose data_ptr is not 16-byte aligned take scalar loads
+    and stores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    grads = []
+    for s in SCALES:
+        flat = torch.from_numpy(_input((2 * s * s * 256 + 1,), seed=s)).to("cuda")
+        grads.append(flat[1:].view(2, s, s, 256))
+    assert grads[0].data_ptr() % 16 != 0
+    got = ppm_pool.launch_backward(ppm_pool._lib(), grads, (75, 100))
+    ref = ppm_pool.pyramid_pool_backward_plain(grads, (75, 100))
+    torch.testing.assert_close(got, ref, **_backward_tol(torch.float32))
+
+
+@pytest.mark.cuda
+def test_valid_form_with_grad_raises_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x = torch.zeros(2, 8, 8, 64, device="cuda", requires_grad=True)
+    v = torch.tensor([[8, 8], [5, 6]], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ppm_pool.pyramid_pool(x, valid_hw=v)
