@@ -65,11 +65,6 @@ PyTorch built for CUDA. In order:
    bench.py's train shape (batch 8, 448x608) with peak memory at batch 2
    and 8 and a ``torch.profiler`` step broken down by kernel.
 
-With ``--against DIR`` it instead times the train step (phase 8) and the
-eval engines' steady state (phase 6) of this checkout and of the checkout
-at DIR (one whose ``chip_smoke.py`` has both phases) in turns: DIR, this,
-this, DIR, each in a process of its own, and stops.
-
 It ends with a JSON line of per-kernel results, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}`` as the last
 line. Any failure raises, so the exit code is non-zero and no result line
@@ -192,8 +187,10 @@ BENCH_TRAIN = (8, 448, 608)
 # the PPM's 1x1 grids, 2 values at batch 2, amplifies rounding), statistics
 # up to 7.4e-4 (conv_last's BN, after a 3x3 conv over 4096 channels);
 # without the pool's gradient layer4's last conv moves by 67%. On an H100
-# the card against the CPU gave 2.7-4.9% and 1.5e-3.
-LOSS_REL, GRAD_REL, STAT_REL = 1e-4, 0.15, 1e-2
+# the card against the CPU gave 2.7-4.9% and 1.5e-3. A statistic held in
+# bf16 is off by up to 3.9e-3 (half a bf16 ulp), the biased variance by 2x
+# on the PPM's 1x1 grids (n = 2).
+LOSS_REL, GRAD_REL, STAT_REL = 1e-4, 0.15, 3e-3
 CARD = "cuda"  # the training phases' device (a CPU rehearsal may set "cpu")
 
 
@@ -1088,7 +1085,8 @@ def _train_cfg_opts(root, odgt):
 def train_phase(work, torch, ppm_pool, card):
     """The flagship at full width, bf16, batch 2 (the config's) through
     ``cli.train``: epoch 1, a resume into epoch 2, then ``cli.eval`` of the
-    ``epoch_2.pth`` pair. Returns the launches of the training runs."""
+    ``epoch_2.pth`` pair. Returns the launches of the training runs and of
+    the eval."""
     import numpy as np
 
     from semseg_tpu_torch.cli import eval as eval_cli, train as train_cli
@@ -1097,7 +1095,7 @@ def train_phase(work, torch, ppm_pool, card):
     odgt = _write_val_set(root, TRAIN_IMAGES, seed=9)
     out = os.path.join(work, "train_run")
     opts = ["DIR", out, *_train_cfg_opts(root, odgt)]
-    launches = {"dense": 0, "backward": 0}
+    launches = {"dense": 0, "valid": 0, "backward": 0}
     # Epoch 1 as a run of one epoch, then a resume of it into a run of two
     # (the poly schedule's horizon grows from 4 to 8 steps at the resume).
     for name, extra, want_history in (
@@ -1130,6 +1128,7 @@ def train_phase(work, torch, ppm_pool, card):
     if (dense, valid) != (0, chunks) or not (np.isfinite(miou) and raw["pix_count"] > 0):
         raise RuntimeError(f"cli.eval of the trained pair: launches {dense}/{valid} (expected "
                            f"0/{chunks}), mIoU {miou}")
+    launches["valid"] += valid
     print(f"[train] cli.eval VAL.checkpoint epoch_2.pth: mIoU {miou:.4f}, accuracy "
           f"{acc * 100:.2f}% over {raw['pix_count']:.0f} labelled pixels", flush=True)
     return launches, root, odgt
@@ -1319,37 +1318,6 @@ def profile_train_step(step, torch, card, wall_s):
               f"{e.count:5d} calls  {e.key[:100]}", flush=True)
 
 
-AGAINST_RUN = r"""
-import os, sys, tempfile, torch
-sys.path.insert(0, os.getcwd())
-import chip_smoke as cs
-card = cs._card_line()
-os.makedirs("build", exist_ok=True)
-with tempfile.TemporaryDirectory(dir="build") as work:
-    cs.train_steady_state(torch, card)
-    ckpt = os.path.join(work, "ckpt")
-    cs._save_random_pth(cs._cfg(), ckpt, torch)
-    odgt = cs._write_val_set(os.path.join(work, "val"), cs.EVAL_IMAGES, seed=1)
-    cs.steady_state(ckpt, os.path.dirname(odgt), odgt, torch, card)
-"""
-AGAINST_LINES = ("[steady]", "[profile] train step (", "[profile] batched pass without")
-
-
-def against(other: str) -> None:
-    """The steady states of this checkout and of ``other``, in turns."""
-    for name, root in (("other", other), ("this", HERE), ("this", HERE), ("other", other)):
-        tic = time.perf_counter()
-        out = subprocess.run([sys.executable, "-c", AGAINST_RUN], cwd=root,
-                             capture_output=True, text=True, timeout=900)
-        print(f"[against] {name} ({root}): rc {out.returncode}, "
-              f"{time.perf_counter() - tic:.0f} s", flush=True)
-        for line in out.stdout.splitlines():
-            if line.startswith(AGAINST_LINES):
-                print(f"[against] {name}: {line}", flush=True)
-        if out.returncode:
-            raise RuntimeError(f"the steady states of {root} failed:\n{out.stderr[-3000:]}")
-
-
 def main(argv=None) -> int:
     import argparse
 
@@ -1359,9 +1327,6 @@ def main(argv=None) -> int:
     parser.add_argument("--compare", default=None, metavar="PATH",
                         help="also time a library built from this ppm_pool.cu against "
                              "the checkout's, in turns (phase 4)")
-    parser.add_argument("--against", default=None, metavar="DIR",
-                        help="only time the train step and the eval engines' steady state "
-                             "of this checkout and of the checkout at DIR, in turns")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1380,10 +1345,6 @@ def main(argv=None) -> int:
     card = _card_line()
     print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"nvidia-smi: {card}", flush=True)
-
-    if args.against:
-        against(os.path.abspath(args.against))
-        return 0
 
     start = tic = time.perf_counter()
     ppm_pool._lib()
@@ -1415,7 +1376,8 @@ def main(argv=None) -> int:
         dp_vs_host_f32(ckpt, val_dir, odgt, torch)
         zoo_card_vs_cpu(zoo_ckpts, torch)
         train_launches, train_root, train_odgt = train_phase(work, torch, ppm_pool, card)
-        launches["dense"] += train_launches["dense"]
+        for form in ("dense", "valid"):
+            launches[form] += train_launches[form]
         loss_falls(torch, train_root, train_odgt, card)
         train_card_vs_cpu(torch, ppm_pool)
         train_steady_state(torch, card)

@@ -22,7 +22,7 @@
   engine's chunk loop.
 
 Host arrays go up in one coalesced copy per chunk or window (pinned, on a
-side stream for a card, see ``_Upload``). Canvases are (H, W, num_class), as in the JAX
+side stream for a card, see ``upload.Upload``). Canvases are (H, W, num_class), as in the JAX
 package; model tensors are NCHW and channels_last in memory.
 """
 
@@ -45,66 +45,7 @@ from semseg_tpu_torch.data.transforms import (
 from semseg_tpu_torch.ops.preproc import normalize_255, normalize_u8_masked, valid_mask
 from semseg_tpu_torch.ops.resize import resize_bilinear
 from semseg_tpu_torch.ops.resize_dynamic import pil_resize_matrix, resize_matrix
-
-_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32,
-                 np.dtype(np.float32): torch.float32}
-
-
-class _Upload:
-    """Host arrays packed into one buffer that reaches the device in one copy.
-
-    For a card the buffer is pinned and the copy runs on ``stream`` (a side
-    stream), followed by an event; ``get`` makes the caller's current stream
-    wait on that event and marks the device buffer as used there
-    (``record_stream``), so the allocator does not hand its memory back to
-    the side stream while the compute stream still reads it. The pinned
-    buffer itself is safe to drop at once: PyTorch's host allocator does not
-    reuse a pinned block before the copies that read it have completed.
-    """
-
-    def __init__(self, specs, device: torch.device):
-        self.device = device
-        self._layout, total = [], 0
-        for shape, dtype in specs:
-            dtype = np.dtype(dtype)
-            total = -(-total // 16) * 16
-            nbytes = int(np.prod(shape)) * dtype.itemsize
-            self._layout.append((total, nbytes, tuple(shape), dtype))
-            total += nbytes
-        self.host = torch.zeros(total, dtype=torch.uint8,
-                                pin_memory=device.type == "cuda")
-        buf = self.host.numpy()
-        #: numpy views to fill before ``send``.
-        self.arrays = [buf[o:o + n].view(dt).reshape(shape)
-                       for o, n, shape, dt in self._layout]
-        self._dev = None
-        self._event = None
-
-    @classmethod
-    def of(cls, arrays, device):
-        up = cls([(a.shape, a.dtype) for a in arrays], device)
-        for dst, src in zip(up.arrays, arrays):
-            dst[...] = src
-        return up
-
-    def send(self, stream=None) -> "_Upload":
-        if self.device.type != "cuda":
-            self._dev = self.host
-            return self
-        with torch.cuda.device(self.device), torch.cuda.stream(stream):
-            self._dev = self.host.to(self.device, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        return self
-
-    def get(self):
-        """Device views of the arrays, ready on the current stream."""
-        if self._event is not None:
-            current = torch.cuda.current_stream(self.device)
-            current.wait_event(self._event)
-            self._dev.record_stream(current)
-        return [self._dev[o:o + n].view(_TORCH_DTYPES[dt]).view(shape)
-                for o, n, shape, dt in self._layout]
+from semseg_tpu_torch.upload import Upload
 
 
 def _fetch_dtype(dtype) -> torch.dtype:
@@ -188,7 +129,7 @@ class InferenceEngine:
                 img = np.pad(img, ((0, 0), (0, ph - h), (0, pw - w), (0, 0)))
             padded.append(np.ascontiguousarray(img))
             hws.append(np.array([[h, w]], np.int32))
-        dev = _Upload.of(padded + hws, self.device).send().get()
+        dev = Upload.of(padded + hws, self.device).send().get()
         n = len(pyramid)
         for img, hw, (h, w) in zip(dev[:n], dev[n:], (a[0] for a in hws)):
             acc += self._postprocess(self._logits_raw_fn(img, hw)[0], int(h), int(w), seg_size)
@@ -356,7 +297,7 @@ class BatchedInferenceEngine(InferenceEngine):
         """Assemble one padded chunk in a host buffer and start its upload
         (one copy, on the side stream for a card); no forward."""
         ph, pw = key
-        up = _Upload([((self.batch_size, ph, pw, 3), np.uint8),
+        up = Upload([((self.batch_size, ph, pw, 3), np.uint8),
                       ((self.batch_size, 2), np.int32)], self.device)
         batch, hw = up.arrays
         for j, (_, arr, h, w) in enumerate(padded_chunk):
@@ -509,7 +450,7 @@ class BatchedInferenceEngine(InferenceEngine):
 
         def prepare_window(window):
             host = [self._void_label_canvas(labels[i], *seg_sizes[i]) for i in window]
-            for i, d in zip(window, _Upload.of(host, self.device).send().get()):
+            for i, d in zip(window, Upload.of(host, self.device).send().get()):
                 dev_labels[i] = d
 
         def finalize(item_idx, acc):
@@ -650,7 +591,7 @@ class DevicePyramidEngine(BatchedInferenceEngine):
                               device=canvases.device)
             return torch.where(mask[..., None], normalize_255(x), 0.0)
 
-    def _upload_window(self, window, originals, labels, seg_sizes) -> _Upload:
+    def _upload_window(self, window, originals, labels, seg_sizes) -> Upload:
         """Start one window's upload: each original zero-padded to the
         lattice, then each void-label canvas, in one pinned buffer."""
         specs = []
@@ -661,7 +602,7 @@ class DevicePyramidEngine(BatchedInferenceEngine):
             specs.append(((_round_up(h, self.ori_step), _round_up(w, self.ori_step), 3),
                           np.uint8))
         specs += [(self._bucket_key(*seg_sizes[i]), np.uint8) for i in window]
-        up = _Upload(specs, self.device)
+        up = Upload(specs, self.device)
         for dst, i in zip(up.arrays, window):
             h, w = originals[i].shape[:2]
             dst[:h, :w] = originals[i]
@@ -691,7 +632,7 @@ class DevicePyramidEngine(BatchedInferenceEngine):
         dev_labels: dict = {}
 
         def stage_chunk(key, padded):
-            up = _Upload([((self.batch_size, 2), np.int32)] * 2, self.device)
+            up = Upload([((self.batch_size, 2), np.int32)] * 2, self.device)
             ohw, thw = up.arrays
             for j, (i, th, tw) in enumerate(padded):
                 ohw[j] = originals[i].shape[:2]

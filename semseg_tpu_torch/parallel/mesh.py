@@ -5,7 +5,7 @@ A thread packs each host batch into one pinned buffer and uploads it on a
 side stream, ``depth`` batches ahead of the step. The consumer's stream
 waits on each batch's event before using it, and the batch's memory is
 marked as used there, as the eval engines' uploader does
-(``engine._Upload``). Abandoning the generator (an error in the step loop,
+(``upload.Upload``). Abandoning the generator (an error in the step loop,
 an early exit) stops the thread and drains the queue, so no uploaded
 batches stay pinned on the card.
 """
@@ -18,7 +18,7 @@ import threading
 import numpy as np
 import torch
 
-from semseg_tpu_torch.engine import _Upload
+from semseg_tpu_torch.upload import Upload
 
 
 def device_prefetch(iterator, device, depth: int = 2):
@@ -43,7 +43,7 @@ def device_prefetch(iterator, device, depth: int = 2):
 
     def upload(batch):
         keys = list(batch)
-        up = _Upload.of([np.ascontiguousarray(batch[k]) for k in keys], device)
+        up = Upload.of([np.ascontiguousarray(batch[k]) for k in keys], device)
         return keys, up.send(stream)
 
     def worker():
