@@ -63,7 +63,22 @@ PyTorch built for CUDA. In order:
    last conv, a PPM branch conv and ``conv_last``, the BN statistics: a
    missing pool gradient moves layer4's by O(1)); and steady state at
    bench.py's train shape (batch 8, 448x608) with peak memory at batch 2
-   and 8 and a ``torch.profiler`` step broken down by kernel.
+   and 8 and a ``torch.profiler`` step broken down by kernel;
+9. serving (run after the zoo phase): ``tools.export_serving`` exports the
+   flagship (bf16) as a bundle of two buckets (448x608, 608x448) at batch
+   4 on the card, with its export time and file sizes (each program file
+   at most 5% of ``params.pt``); each program against the eager forward
+   (argmax agreement) with one dense launch per program call; an f32
+   bundle exported on the card against the same bundle exported on the CPU
+   (TF32 off); then ``cli.serve`` on 127.0.0.1 over the bundle and over
+   the live engine (5 scales, batch 8, packed): ``/healthz``, then 16 JPEG
+   requests of shapes sampled from ``data/validation.odgt``, sent twice per
+   round from 1, 4, 8 and 16 client threads, with req/s, mean batch fill,
+   the server's latency percentiles (enqueue to result) and the client's
+   (decode, pyramid and HTTP included) per round; every answer 200, and at one
+   client each label map equal to the backend's own prediction of the
+   decoded image; last, the live server with ``--max-queue 2`` under 16
+   concurrent requests must answer some 503 and no 500.
 
 It ends with a JSON line of per-kernel results, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}`` as the last
@@ -192,6 +207,13 @@ BENCH_TRAIN = (8, 448, 608)
 # on the PPM's 1x1 grids (n = 2).
 LOSS_REL, GRAD_REL, STAT_REL = 1e-4, 0.15, 3e-3
 CARD = "cuda"  # the training phases' device (a CPU rehearsal may set "cpu")
+# Serving (phase 9): the bundle's buckets and batch, the request shapes
+# (sampled from the real val manifest), the client concurrencies, and the
+# largest program file as a share of params.pt (the weights are saved once).
+SERVE_SHAPES, SERVE_BATCH = "448x608,608x448", 4
+SERVE_REQUESTS = 16
+SERVE_CONCURRENCY = (1, 4, 8, 16)
+PROGRAM_SHARE = 0.05
 
 
 def _card_line() -> str:
@@ -1101,7 +1123,7 @@ def train_phase(work, torch, ppm_pool, card):
     for name, extra, want_history in (
             ("cli.train epoch 1", ["TRAIN.num_epoch", "1"], 2),
             ("cli.train resumed into epoch 2", ["TRAIN.num_epoch", "2", "TRAIN.start_epoch", "1"],
-             4)):
+             2)):
         (state, history), seconds, dense, valid = _run_path(
             name, lambda: train_cli.main(["--cfg", CFG, *opts, *extra]), ppm_pool, torch,
             backward=TRAIN_ITERS)
@@ -1318,6 +1340,249 @@ def profile_train_step(step, torch, card, wall_s):
               f"{e.count:5d} calls  {e.key[:100]}", flush=True)
 
 
+def _post_all(url, bodies, concurrency):
+    """POST every body to ``url`` from ``concurrency`` client threads.
+    Returns (wall seconds, [(status, client seconds, payload)] in order)."""
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    def post(body):
+        tic = time.perf_counter()
+        req = urllib.request.Request(url, data=body, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                status, payload = resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            status, payload = e.code, e.read()
+        return status, time.perf_counter() - tic, payload
+
+    tic = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=concurrency) as pool:
+        results = list(pool.map(post, bodies))
+    return time.perf_counter() - tic, results
+
+
+def _pct(values, q):
+    """The server's percentile rule (``MicroBatcher.stats``)."""
+    values = sorted(values)
+    return values[min(int(len(values) * q), len(values) - 1)]
+
+
+def _serve_traffic(name, server, bodies, refs, agree, card):
+    """Request rounds at each concurrency against a bound server, after a
+    warm round; ``bodies`` are the requests of one round and ``refs`` the
+    backend's own label map of each decoded image, predicted alone. Every
+    answer must be 200. At one client each request is alone in its batch,
+    so its label map must equal its reference. With more clients each map
+    must agree with its own reference within ``agree`` (None: more than
+    with the reference of any other request of its shape; the live
+    engine's packing may fold a level into a larger bucket with co-batched
+    requests, whose extra zero pad the convolutions carry in). Returns the
+    batches the backend ran."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    server.serve_background()
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+        health = json.load(resp)
+    print(f"[serve] {name}: /healthz {health}", flush=True)
+    if health["status"] != "ok":
+        raise RuntimeError(f"{name}: /healthz {health}")
+    _post_all(url + "/segment?format=npy", bodies, max(SERVE_CONCURRENCY))
+    batches = 0
+    for conc in SERVE_CONCURRENCY:
+        server.batcher.reset_stats()
+        wall, results = _post_all(url + "/segment?format=npy", bodies, conc)
+        with urllib.request.urlopen(url + "/stats", timeout=60) as resp:
+            stats = json.load(resp)
+        bad = [st for st, _, _ in results if st != 200]
+        lats = [t * 1e3 for _, t, _ in results]
+        maps = [np.load(io.BytesIO(p)) for st, _, p in results if st == 200]
+        shares = [float((m == r).mean()) if m.shape == r.shape else 0.0
+                  for m, r in zip(maps, refs)]
+        others = [max([float((m == r).mean()) for r in refs
+                       if r.shape == m.shape and r is not own], default=0.0)
+                  for m, own in zip(maps, refs)]
+        print(f"[serve] {name}, {conc} client(s), {len(bodies)} requests: "
+              f"{len(bodies) / wall:.2f} req/s, mean_batch_fill {stats['mean_batch_fill']:.2f} "
+              f"({stats['batches']} batches), /stats latency p50 {stats['latency_ms_p50']:.1f} / "
+              f"p95 {stats['latency_ms_p95']:.1f} ms, client p50 {_pct(lats, 0.5):.1f} / p95 "
+              f"{_pct(lats, 0.95):.1f} / max {max(lats):.1f} ms, non-200 {len(bad)}; each map "
+              f"against its request predicted alone: agreement min "
+              f"{min(shares, default=0.0):.6f} (closest other request max "
+              f"{max(others, default=0.0):.6f}); card: {card}", flush=True)
+        if bad or stats["errors"] or stats["requests"] != len(bodies):
+            raise RuntimeError(f"{name}, {conc} clients: statuses {bad}, stats {stats}")
+        if len(shares) != len(bodies) or min(shares) < (1.0 if conc == 1 else agree or 0.0) \
+                or (agree is None and any(a <= b for a, b in zip(shares, others))):
+            raise RuntimeError(f"{name}, {conc} clients: a label map departs from the "
+                               f"backend's own: agreement {shares}, with the closest other "
+                               f"request's {others}")
+        batches += stats["batches"]
+    return batches
+
+
+def serving_phase(work, ckpt, torch, ppm_pool, card):
+    """Phase 9: ``tools.export_serving`` exports the flagship's bundle
+    (bf16, two buckets, batch 4) on the card; each program against the
+    eager forward, one dense launch per program call; an f32 bundle on the
+    card against the same one on the CPU; then ``cli.serve`` over the
+    bundle and over the live engine (5 scales, batch 8, packed) on
+    127.0.0.1, JPEG requests of val-manifest shapes from 1-16 clients;
+    then admission control (``--max-queue 2``, 16 concurrent requests).
+    Returns the launches of the served traffic."""
+    import collections
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
+    from semseg_tpu_torch.cli import serve as serve_cli
+    from semseg_tpu_torch.data.dataset import sample_odgt_shapes
+    from semseg_tpu_torch.models import ModelBuilder
+    from semseg_tpu_torch.ops.preproc import normalize_255
+    from semseg_tpu_torch.ops.resize import resize_bilinear
+    from semseg_tpu_torch.serving import Predictor
+    from semseg_tpu_torch.tools import export_serving
+
+    start = time.perf_counter()
+    bundle = os.path.join(work, "bundle")
+    tic = time.perf_counter()
+    manifest = export_serving.main(["--cfg", CFG, "--out", bundle, "--shapes", SERVE_SHAPES,
+                                    "--batch", str(SERVE_BATCH), "DIR", ckpt])
+    export_s = time.perf_counter() - tic
+    params = os.path.getsize(os.path.join(bundle, "params.pt"))
+    sizes = {p["file"]: os.path.getsize(os.path.join(bundle, p["file"]))
+             for p in manifest["programs"]}
+    print(f"[serve] export of {len(sizes)} programs on the card: {export_s:.1f} s; "
+          + ", ".join(f"{f} {n / 1e6:.3f} MB ({n / params:.2%} of params.pt)"
+                      for f, n in sizes.items()) + f"; params.pt {params / 1e6:.1f} MB",
+          flush=True)
+    if manifest["device"] != "cuda" or max(sizes.values()) > PROGRAM_SHARE * params:
+        raise RuntimeError(f"bundle: device {manifest['device']}, program files {sizes} "
+                           f"against params.pt {params} bytes")
+
+    server, (pred,) = serve_cli.build_server(
+        ["--bundle", bundle, "--host", "127.0.0.1", "--port", "0", "--quiet",
+         "--max-batch", str(SERVE_BATCH)])
+    cfg = _cfg("DIR", ckpt)
+    resolve_reference_checkpoint(cfg, cfg.TEST.checkpoint)
+    model = ModelBuilder.build_model(cfg, device="cuda")
+    rng = np.random.RandomState(11)
+    for b, h, w in sorted(pred.programs):
+        imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for _ in range(b)]
+        ppm_pool.LAUNCHES = 0
+        got = pred.predict_batch(imgs)
+        torch.cuda.synchronize()
+        if ppm_pool.LAUNCHES != 1:
+            raise RuntimeError(f"program {b}x{h}x{w}: {ppm_pool.LAUNCHES} dense launches")
+        with torch.no_grad():
+            x = normalize_255(torch.from_numpy(np.stack(imgs)).to("cuda", torch.float32))
+            logits = model(x.permute(0, 3, 1, 2))
+            want = resize_bilinear(logits.to(torch.float32), (h, w)).argmax(dim=1).cpu().numpy()
+        shares = [float((g == wm).mean()) for g, wm in zip(got, want)]
+        print(f"[serve] program {b}x{h}x{w} against the eager forward (bf16): argmax "
+              f"agreement {min(shares):.6f} (limit {AGREE}), 1 dense launch per call", flush=True)
+        if min(shares) < AGREE:
+            raise RuntimeError(f"program {b}x{h}x{w} disagrees with the eager forward: {shares}")
+    del model
+    mixed = [np.zeros((448, 608, 3), np.uint8)] * 5 + [np.zeros((608, 448, 3), np.uint8)] * 2
+    ppm_pool.LAUNCHES = 0
+    pred.predict_batch(mixed)
+    if ppm_pool.LAUNCHES != 3:  # 5 landscape images in 2 calls, 2 portrait ones in 1
+        raise RuntimeError(f"7 mixed images: {ppm_pool.LAUNCHES} dense launches, expected 3")
+    serving_f32(work, ckpt, torch, Predictor, export_serving)
+
+    shapes = sample_odgt_shapes(os.path.join(HERE, "data", "validation.odgt"), SERVE_REQUESTS,
+                                seed=0)
+    rng = np.random.RandomState(12)
+    bodies, decoded = [], []
+    for h, w in shapes:
+        # Gradients in a random channel order and direction plus noise:
+        # JPEG-friendly, and no two requests of one shape alike.
+        yy, xx = np.mgrid[0:h, 0:w]
+        if rng.rand() < 0.5:
+            yy, xx = yy[::-1], xx[:, ::-1]
+        base = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 255 // (h + w)], -1)
+        img = base[..., rng.permutation(3)] + rng.randint(-60, 61, 3)
+        img = np.clip(img + rng.randint(-20, 21, (h, w, 3)), 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=90)
+        bodies.append(buf.getvalue())
+        decoded.append(np.asarray(Image.open(io.BytesIO(bodies[-1])).convert("RGB")))
+    print(f"[serve] {len(bodies)} JPEG requests, shapes sampled from data/validation.odgt "
+          f"(seed 0): {shapes}; sent twice per round", flush=True)
+    launches = {"dense": 0, "valid": 0}
+
+    refs = [pred.predict(d) for d in decoded]
+    batches, _, dense, valid = _run_path("cli.serve --bundle traffic", lambda: _serve_traffic(
+        "bundle", server, bodies * 2, refs * 2, AGREE, card), ppm_pool, torch)
+    server.close()
+    if not (batches <= dense <= 2 * batches and valid == 0):
+        raise RuntimeError(f"bundle traffic: {batches} batches, launches dense {dense} / "
+                           f"valid {valid}")
+    launches["dense"] += dense
+
+    server, (live,) = serve_cli.build_server(
+        ["--cfg", CFG, "--host", "127.0.0.1", "--port", "0", "--quiet", "--max-batch", "8",
+         "DIR", ckpt])
+    refs = [live.predict_batch([d])[0] for d in decoded]
+    _, _, dense, valid = _run_path("cli.serve --cfg (live) traffic", lambda: _serve_traffic(
+        "live 5 scales", server, bodies * 2, refs * 2, None, card), ppm_pool, torch)
+    server.close()
+    if dense or not valid:
+        raise RuntimeError(f"live traffic: launches dense {dense} / valid {valid}")
+    launches["valid"] += valid
+
+    server, _ = serve_cli.build_server(
+        ["--cfg", CFG, "--host", "127.0.0.1", "--port", "0", "--quiet", "--no-warmup",
+         "--max-queue", "2", "DIR", ckpt])
+    server.serve_background()
+    try:
+        (_, results), _, dense, valid = _run_path("cli.serve --max-queue 2 overload", lambda: (
+            _post_all(f"http://127.0.0.1:{server.server_address[1]}/segment", bodies, 16)),
+            ppm_pool, torch)
+    finally:
+        server.close()
+    codes = collections.Counter(st for st, _, _ in results)
+    print(f"[serve] --max-queue 2, 16 concurrent requests: statuses {dict(codes)}", flush=True)
+    if not codes[503] or set(codes) - {200, 503}:
+        raise RuntimeError(f"overload: statuses {dict(codes)}; expected 503s and no 500")
+    launches["valid"] += valid
+    print(f"[serve] phase 9 took {time.perf_counter() - start:.1f} s", flush=True)
+    return launches
+
+
+def serving_f32(work, ckpt, torch, Predictor, export_serving):
+    """An f32 bundle of one bucket exported on the card against the same
+    bundle exported on the CPU, TF32 off: argmax agreement."""
+    import numpy as np
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        maps = {}
+        img = np.random.RandomState(13).randint(0, 256, (448, 608, 3)).astype(np.uint8)
+        for device in ("cuda", "cpu"):
+            out = os.path.join(work, f"bundle_f32_{device}")
+            export_serving.main(["--cfg", CFG, "--out", out, "--shapes", "448x608", "--batch",
+                                 "1", "--device", device, "DIR", ckpt,
+                                 "TPU.compute_dtype", "float32"])
+            maps[device] = Predictor(out, device=device).predict(img)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    agree = float((maps["cuda"] == maps["cpu"]).mean())
+    print(f"[serve] f32 bundle 1x448x608, card against CPU (TF32 off): argmax agreement "
+          f"{agree:.6f} (limit {AGREE})", flush=True)
+    if agree < AGREE:
+        raise RuntimeError("the f32 bundle on the card disagrees with the CPU")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1367,8 +1632,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
         ckpt, val_dir, odgt, launches = main_path(work, torch, ppm_pool)
         zoo_launches, zoo_ckpts = zoo_phase(work, torch, ppm_pool)
-        for form, n in zoo_launches.items():
-            launches[form] += n
+        serve_launches = serving_phase(work, ckpt, torch, ppm_pool, card)
+        for form in ("dense", "valid"):
+            launches[form] += zoo_launches[form] + serve_launches[form]
         steady_state(ckpt, val_dir, odgt, torch, card)
         card_vs_cpu(ckpt, torch)
         batched_f32(ckpt, work, torch)

@@ -107,7 +107,8 @@ def save_train_state(ckpt_dir: str, epoch: int, state, history=None) -> None:
 
 def restore_train_state(ckpt_dir: str, epoch: int, state):
     """Load ``state_epoch_N.pt`` into ``state`` (model, optimizer, step) in
-    place; returns the saved history."""
+    place. The history saved beside it is not restored: a resumed run
+    records only the epochs it runs, as the JAX CLI does."""
     path = os.path.join(ckpt_dir, f"state_epoch_{epoch}.pt")
     if not os.path.exists(path):
         raise FileNotFoundError(f"no train state for epoch {epoch}: {path}")
@@ -116,7 +117,6 @@ def restore_train_state(ckpt_dir: str, epoch: int, state):
     state.model.decoder.load_state_dict(snap["decoder"], strict=True)
     state.optimizer.load_state_dict(snap["optimizer"])
     state.step = int(snap["step"])
-    return snap["history"]
 
 
 class AsyncSaver:

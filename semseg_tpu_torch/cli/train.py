@@ -189,9 +189,10 @@ def main(argv=None):
             load_pretrained_encoder(model.encoder, path)
             logger.info(f"Encoder initialised from {path}")
     state = create_train_state(cfg, model)
+    # A resumed run's history holds only the epochs it runs, as in the JAX CLI.
     history = {"train": {"epoch": [], "loss": [], "acc": []}}
     if cfg.TRAIN.start_epoch > 0:
-        history = restore_train_state(cfg.DIR, cfg.TRAIN.start_epoch, state)
+        restore_train_state(cfg.DIR, cfg.TRAIN.start_epoch, state)
         logger.info(f"Resumed from epoch {cfg.TRAIN.start_epoch} at step {state.step}")
     model.train()
 

@@ -71,6 +71,17 @@ def parse_odgt(odgt, max_sample=-1, start_idx=-1, end_idx=-1) -> List[dict]:
     return samples
 
 
+def sample_odgt_shapes(odgt_path: str, n: int, seed: int = 0):
+    """(H, W) original shapes sampled without replacement from an odgt
+    manifest — the benchmarks' shared shape distribution (a single
+    synthetic shape fills every bucket batch perfectly and flatters
+    MS-protocol numbers; shapes must come from the real val manifest)."""
+    recs = parse_odgt(odgt_path)
+    rng = np.random.RandomState(seed)
+    idx = rng.choice(len(recs), n, replace=False)
+    return [(recs[i]["height"], recs[i]["width"]) for i in idx]
+
+
 class PyramidBuilder:
     """In-memory multi-scale pyramid transforms — no manifest required.
 

@@ -17,7 +17,12 @@ is ``ops.resize_dynamic.adaptive_avg_pool2d_valid`` at the four scales
 (``semseg_tpu/ops/resize_dynamic.py:70``, f32 einsums in the JAX package).
 The same kernel reads each sample's extent from the device.
 
-The dense form is a ``torch.autograd.Function``: its gradient is a second
+The three forms are registered operators, ``semseg_tpu_torch::pyramid_pool``,
+``::pyramid_pool_valid`` and ``::pyramid_pool_backward``
+(``torch.library.custom_op``), each with a fake implementation that gives
+its output shapes, so ``torch.export`` keeps each call as one node and an
+exported program launches the kernel (``serving.py``). The dense operator's
+gradient (``register_autograd``) is the backward operator, a second
 hand-written kernel (``ppm_pool_backward_kernel`` in the same source), which
 writes ``grad_x[n, h, w, c] = sum over the scales s and the bins (i, j) of s
 that hold (h, w) of g_s[n, i, j, c] / area_s(i, j)``. The gradient is
@@ -29,15 +34,16 @@ integral-image pool (``semseg_tpu/ops/pool.py:55``), which computes the
 same sum. The pad-aware form is inference only (the JAX package trains on
 unmasked canvases): with ``valid_hw``, an input that requires grad raises.
 
-``pyramid_pool`` takes the plain versions (forward and backward) only for a
-tensor on the CPU. For a CUDA tensor it launches the kernels or raises.
+Each operator's CPU implementation is the plain version; its CUDA
+implementation checks the inputs (raising, never copying), launches the
+kernel and counts the launch. A tensor on any other device raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,7 +55,8 @@ SCALES = (1, 2, 3, 6)
 SOURCES = ("ppm_pool.cu",)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Kernel launches made by ``pyramid_pool`` (CUDA tensors only): the dense
+#: Kernel launches made by the operators' CUDA implementations, eager or
+#: from an exported program (an export trace launches nothing): the dense
 #: form, the pad-aware form (``valid_hw`` given), and the dense form's
 #: backward.
 LAUNCHES = 0
@@ -158,59 +165,8 @@ def launch_backward(lib: ctypes.CDLL, grads: Sequence[torch.Tensor],
     return out
 
 
-class _DensePool(torch.autograd.Function):
-    """The dense form with its hand-written backward."""
-
-    @staticmethod
-    def forward(ctx, x):
-        global LAUNCHES
-        ctx.hw = tuple(x.shape[1:3])
-        if x.device.type == "cpu":
-            return pyramid_pool_plain(x)
-        outs = launch(_lib(), x)
-        LAUNCHES += 1
-        return outs
-
-    @staticmethod
-    def backward(ctx, *grads):
-        global BACKWARD_LAUNCHES
-        grads = [g.contiguous() for g in grads]
-        if grads[0].device.type == "cpu":
-            return pyramid_pool_backward_plain(grads, ctx.hw)
-        out = launch_backward(_lib(), grads, ctx.hw)
-        BACKWARD_LAUNCHES += 1
-        return out
-
-
-def pyramid_pool(
-    x: torch.Tensor, scales: Sequence[int] = SCALES,
-    valid_hw: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, ...]:
-    """All adaptive-avg-pool grids of ``x`` (N, H, W, C), one read of ``x``.
-
-    Returns a tuple of (N, s, s, C) tensors in ``x.dtype`` equal to
-    ``adaptive_avg_pool2d`` at each scale, or with ``valid_hw`` ((N, 2)
-    int32, each sample's extent, within the canvas) to
-    ``adaptive_avg_pool2d_valid``. The dense form is differentiable (its
-    backward is the second kernel); the pad-aware form raises if ``x``
-    requires grad. On a CUDA tensor ``x`` must be float32 or bfloat16 and
-    NHWC-contiguous (``permute(0, 2, 3, 1)`` of a channels_last map) and
-    ``valid_hw`` a contiguous int32 tensor on the same card; the kernels run
-    on the current stream and nothing is synchronised.
-    """
-    global VALID_LAUNCHES
-    if tuple(scales) != SCALES:
-        raise ValueError(f"pyramid_pool computes scales {SCALES}, got {tuple(scales)}")
-    if valid_hw is not None and x.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(
-            "pyramid_pool: the pad-aware form (valid_hw) has no gradient; the "
-            "training forward pools the whole canvas, as the JAX package does"
-        )
-    if x.device.type == "cpu":
-        return pyramid_pool_plain(x, scales, valid_hw) if valid_hw is not None \
-            else _DensePool.apply(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"pyramid_pool: unsupported device {x.device}")
+def _check(x: torch.Tensor, valid_hw: Optional[torch.Tensor] = None) -> None:
+    """What the kernel takes: raises on anything else, copies nothing."""
     if x.dim() != 4:
         raise ValueError(f"pyramid_pool expects (N, H, W, C), got shape {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
@@ -232,8 +188,118 @@ def pyramid_pool(
             f"on {x.device}; got {tuple(valid_hw.shape)} {valid_hw.dtype} on "
             f"{valid_hw.device}"
         )
-    if valid_hw is None:
-        return _DensePool.apply(x)
+
+
+def _check_grads(grads: Sequence[torch.Tensor]) -> None:
+    g = grads[0]
+    n, _, _, c = g.shape
+    for s, t in zip(SCALES, grads):
+        if (tuple(t.shape) != (n, s, s, c) or t.dtype != g.dtype or t.device != g.device
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"pyramid_pool_backward: gradient {s} must be a contiguous ({n}, {s}, {s}, "
+                f"{c}) {g.dtype} tensor on {g.device}; got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}, strides {t.stride()}"
+            )
+    if g.dtype not in _DTYPE_CODES:
+        raise TypeError(f"pyramid_pool_backward takes float32 or bfloat16, got {g.dtype}")
+
+
+def _grids_like(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    n, _, _, c = x.shape
+    return tuple(x.new_empty((n, s, s, c)) for s in SCALES)
+
+
+# The three forms as registered operators (see the module docstring).
+@torch.library.custom_op("semseg_tpu_torch::pyramid_pool", mutates_args=(), device_types="cpu")
+def _dense_op(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return pyramid_pool_plain(x)
+
+
+@_dense_op.register_kernel("cuda")
+def _dense_cuda(x):
+    global LAUNCHES
+    _check(x)
+    outs = launch(_lib(), x)
+    LAUNCHES += 1
+    return outs
+
+
+@torch.library.custom_op("semseg_tpu_torch::pyramid_pool_valid", mutates_args=(),
+                         device_types="cpu")
+def _valid_op(x: torch.Tensor, valid_hw: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return pyramid_pool_plain(x, SCALES, valid_hw)
+
+
+@_valid_op.register_kernel("cuda")
+def _valid_cuda(x, valid_hw):
+    global VALID_LAUNCHES
+    _check(x, valid_hw)
     outs = launch(_lib(), x, valid_hw)
     VALID_LAUNCHES += 1
     return outs
+
+
+@torch.library.custom_op("semseg_tpu_torch::pyramid_pool_backward", mutates_args=(),
+                         device_types="cpu")
+def _backward_op(grads: List[torch.Tensor], h: int, w: int) -> torch.Tensor:
+    return pyramid_pool_backward_plain(grads, (h, w))
+
+
+@_backward_op.register_kernel("cuda")
+def _backward_cuda(grads, h, w):
+    global BACKWARD_LAUNCHES
+    _check_grads(grads)
+    out = launch_backward(_lib(), grads, (h, w))
+    BACKWARD_LAUNCHES += 1
+    return out
+
+
+_dense_op.register_fake(_grids_like)
+_valid_op.register_fake(lambda x, valid_hw: _grids_like(x))
+
+
+@_backward_op.register_fake
+def _(grads, h, w):
+    n, _, _, c = grads[0].shape
+    return grads[0].new_empty((n, h, w, c))
+
+
+def _setup_dense(ctx, inputs, output):
+    ctx.hw = tuple(inputs[0].shape[1:3])
+
+
+def _dense_backward(ctx, *grads):
+    return _backward_op([g.contiguous() for g in grads], *ctx.hw)
+
+
+_dense_op.register_autograd(_dense_backward, setup_context=_setup_dense)
+
+
+def pyramid_pool(
+    x: torch.Tensor, scales: Sequence[int] = SCALES,
+    valid_hw: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """All adaptive-avg-pool grids of ``x`` (N, H, W, C), one read of ``x``.
+
+    Returns a tuple of (N, s, s, C) tensors in ``x.dtype`` equal to
+    ``adaptive_avg_pool2d`` at each scale, or with ``valid_hw`` ((N, 2)
+    int32, each sample's extent, within the canvas) to
+    ``adaptive_avg_pool2d_valid``. The dense form is differentiable (its
+    backward is the second kernel); the pad-aware form raises if ``x``
+    requires grad. On a CUDA tensor ``x`` must be float32 or bfloat16 and
+    NHWC-contiguous (``permute(0, 2, 3, 1)`` of a channels_last map) and
+    ``valid_hw`` a contiguous int32 tensor on the same card; the kernels run
+    on the current stream and nothing is synchronised.
+    """
+    if tuple(scales) != SCALES:
+        raise ValueError(f"pyramid_pool computes scales {SCALES}, got {tuple(scales)}")
+    if valid_hw is not None and x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            "pyramid_pool: the pad-aware form (valid_hw) has no gradient; the "
+            "training forward pools the whole canvas, as the JAX package does"
+        )
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pyramid_pool: unsupported device {x.device}")
+    return _dense_op(x) if valid_hw is None else _valid_op(x, valid_hw)

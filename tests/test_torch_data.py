@@ -143,6 +143,16 @@ def test_eval_loader_keeps_order(val_set):
     assert infos == [r["fpath_img"] for r in ds.list_sample]
 
 
+@pytest.mark.parametrize("n,seed", [(16, 0), (200, 3)])
+def test_sample_odgt_shapes_agree(n, seed):
+    """The serving smoke's (and a later bench's) request shapes."""
+    odgt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "data", "validation.odgt")
+    got = port_dataset.sample_odgt_shapes(odgt, n, seed=seed)
+    assert got == jax_dataset.sample_odgt_shapes(odgt, n, seed=seed)
+    assert len(got) == n and all(h > 0 and w > 0 for h, w in got)
+
+
 @pytest.mark.parametrize("padding_constant", [4, 8, 32])
 def test_effective_lattice_agrees(padding_constant):
     for step in [None, 0, 1, 3, 7, 8, 9, 16, 24, 31, 32, 33, 48, 64, 100]:

@@ -84,3 +84,14 @@ def test_port_imports_without_jax():
 
 def test_port_imports_without_jax_with_platform_set():
     _probe(dict(os.environ, SEMSEG_PLATFORM="cpu"))
+
+
+def test_serving_host_loads_no_model_code():
+    """A serving host runs an exported bundle with no model zoo: importing
+    ``semseg_tpu_torch.serving`` loads no ``semseg_tpu_torch.models`` module."""
+    probe = ("import sys, semseg_tpu_torch.serving; "
+             "print(sorted(m for m in sys.modules if m.startswith('semseg_tpu_torch.models')))")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"

@@ -5,7 +5,8 @@ against JAX ``pyramid_pool(..., interpret=True)`` and against four
 ``ops.adaptive_avg_pool2d`` calls. float32 within atol 1e-5 (summation
 order); bfloat16 compared in float32 within rtol 8e-3, one bf16 ulp, since
 each side rounds its f32 mean once. The pad-aware form (``valid_hw``) is
-held against JAX ``adaptive_avg_pool2d_valid`` at the four scales. The CUDA
+held against JAX ``adaptive_avg_pool2d_valid`` at the four scales. The three
+registered operators pass ``torch.library.opcheck`` on the CPU. The CUDA
 kernel is held against the plain version on the card by the tests marked
 ``cuda``; JAX is imported inside the tests that use it, so that this file
 also runs where only PyTorch is installed (see README).
@@ -96,6 +97,38 @@ def test_cpu_call_does_not_count_a_launch():
     ppm_pool.pyramid_pool(x)
     ppm_pool.pyramid_pool(x, valid_hw=torch.tensor([[3, 4]], dtype=torch.int32))
     assert (ppm_pool.LAUNCHES, ppm_pool.VALID_LAUNCHES) == before
+
+
+def _opcheck_cases(device="cpu"):
+    x = torch.from_numpy(_input((2, 13, 17, 24), seed=9)).to(device)
+    v = torch.tensor([[13, 17], [6, 9]], dtype=torch.int32, device=device)
+    grads = [torch.from_numpy(_input((2, s, s, 24), seed=10 + s)).to(device) for s in SCALES]
+    return {
+        "dense": (torch.ops.semseg_tpu_torch.pyramid_pool, (x,)),
+        "dense_grad": (torch.ops.semseg_tpu_torch.pyramid_pool, (x.clone().requires_grad_(),)),
+        "valid": (torch.ops.semseg_tpu_torch.pyramid_pool_valid, (x, v)),
+        "backward": (torch.ops.semseg_tpu_torch.pyramid_pool_backward, (grads, 13, 17)),
+    }
+
+
+@pytest.mark.parametrize("case", ["dense", "dense_grad", "valid", "backward"])
+def test_registered_op_passes_opcheck(case):
+    """The registered operators (what ``torch.export`` records and an
+    exported program calls) on the CPU: schema, fake implementation
+    against the real one, autograd registration, and AOT dispatch with
+    dynamic shapes (the dense form's gradient through the backward op)."""
+    op, args = _opcheck_cases()[case]
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "dense_grad", "valid", "backward"])
+def test_registered_op_passes_opcheck_on_card(case):
+    """The same checks against the CUDA implementations (the kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    op, args = _opcheck_cases("cuda")[case]
+    torch.library.opcheck(op, args)
 
 
 @pytest.mark.parametrize("device,scales,match", [

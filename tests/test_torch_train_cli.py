@@ -167,7 +167,9 @@ def test_resume_repeats_the_uninterrupted_run(trained, train_set, tmp_path):
     shutil.copy(os.path.join(out, "state_epoch_1.pt"), tmp_path / "state_epoch_1.pt")
     state, resumed = _train(root, odgt, str(tmp_path), "TRAIN.start_epoch", "1")
     assert state.step == 4
-    assert resumed == history
+    # The resumed history holds only the epoch it ran, as JAX's does.
+    assert resumed == {"train": {k: v[2:] for k, v in history["train"].items()}}
+    assert all(e > 1 for e in resumed["train"]["epoch"])
     for part in ("encoder", "decoder"):
         a = torch.load(os.path.join(out, f"{part}_epoch_2.pth"), weights_only=True)
         b = torch.load(tmp_path / f"{part}_epoch_2.pth", weights_only=True)
