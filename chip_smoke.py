@@ -77,8 +77,34 @@ PyTorch built for CUDA. In order:
    the server's latency percentiles (enqueue to result) and the client's
    (decode, pyramid and HTTP included) per round; every answer 200, and at one
    client each label map equal to the backend's own prediction of the
-   decoded image; last, the live server with ``--max-queue 2`` under 16
-   concurrent requests must answer some 503 and no 500.
+   decoded image, with more clients the bundle's within 0.999 of its
+   request predicted alone at the slot of the batch it was served in (the
+   program rounds the last slot of a full batch differently) and the live
+   engine's closer to its own request than to any other; last, the live server with ``--max-queue 2`` under 16
+   concurrent requests must answer some 503 and no 500;
+10. data parallel on one card (after training): (a) two ranks, spawned
+   processes on cuda:0 over gloo (NCCL refuses two ranks on one device),
+   the flagship in float32 with TF32 off and dropout on, rank 0 with one
+   448x608 image and rank 1 one 384x608 image (padded to rank 0's canvas
+   through the store, with other void pixels), one step against one
+   process on the card with the joined, padded batch of 2: loss, accuracy,
+   every BN running statistic and ``iter``, and layer4's and the decoder's
+   gradients, both ranks' states bit-equal, one dense and one backward pool
+   launch per rank per step, and ms/step as a smoke (two ranks share the
+   card); (b) ``cli.train --multihost`` as a world of 1 on NCCL from the
+   SEMSEG_* variables on phase 8's data and settings (one loader worker,
+   every step logged), its per-step losses against two single-card runs
+   (bit-equal where those are; else the first step bit-equal and the
+   nearest of three single-card runs within 3x their largest distance),
+   NCCL the backend in use; (c) the eval CLI's engines, one and two on cuda:0
+   through ``build_engines``' device list: ``--exact`` sums equal, the
+   default batched path's mIoU within 1e-4 (PARITY.md's bucketed bar;
+   the two engines take chunks of 4 images), with the launches counted.
+
+With more than one visible card, a last check puts a rank or an engine on
+every card: the ranks (NCCL) against one process as in 10 (a),
+``cli.train --devices N`` for one epoch, and ``cli.eval --exact --devices
+N`` against one engine. Run with no arguments on one card, it needs one.
 
 It ends with a JSON line of per-kernel results, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}`` as the last
@@ -214,6 +240,29 @@ SERVE_SHAPES, SERVE_BATCH = "448x608,608x448", 4
 SERVE_REQUESTS = 16
 SERVE_CONCURRENCY = (1, 4, 8, 16)
 PROGRAM_SHARE = 0.05
+# Data parallel on one card (phase 10). (a): two gloo ranks on cuda:0, one
+# image each, rank 1's canvas padded to rank 0's; the flagship in float32,
+# TF32 off, dropout on (the ranks draw one process's masks), against one
+# process on the same card with the joined batch of 2. The limits are phase
+# 8's card-vs-CPU ones (LOSS_REL, GRAD_REL, STAT_REL; measured there on an
+# H100: BN statistics 1.5e-3, gradients 3.3e-2 / 4.9e-2): the two runs
+# differ only in how a batch of 1 and one of 2 round (per-rank sums added
+# across ranks, cuDNN's choices per batch size), less than a card against a
+# CPU. The accuracy within DP_ACC: a few near-tied argmaxes of ~7,000
+# labelled pixels may flip. BN's iter must be equal, and both ranks' state
+# equal bit for bit. (c): the batched two-engine run sets ``cli.eval.CHUNK``
+# to DP_EVAL_CHUNK images (the CLI's 32 would hand all 9 to one engine), so
+# that both engines get some of them.
+# Per rank: (H, W), void share; (a) takes the first two, the multi-card
+# check one per card.
+DP_IMAGES = [((448, 608), 0.1), ((384, 608), 0.4), ((448, 576), 0.2), ((416, 608), 0.0),
+             ((384, 576), 0.3), ((448, 544), 0.1), ((352, 608), 0.5), ((448, 608), 0.0)]
+DP_TIMED_STEPS = 3
+DP_ACC = 1e-3
+DP_GRADS = ("encoder.layer4.2.conv3.weight", "decoder.ppm.0.1.weight",
+            "decoder.conv_last.4.weight")
+DP_EVAL_CHUNK = 4
+BUCKETED_MIOU = 1e-4  # PARITY.md's bar for the bucketed and packed paths
 
 
 def _card_line() -> str:
@@ -494,27 +543,33 @@ def _plan_engine(cls, cfg, batch=4, **kw):
                pack_buckets=True, **kw)
 
 
-def expected_chunks(cfg, val_dir, odgt, batch=4, *, flagship=True):
-    """Chunks the batched engine schedules for the val set (one call of
-    <= 32 images), counted from its own schedule."""
+def expected_chunks(cfg, val_dir, odgt, batch=4, *, flagship=True, calls=32):
+    """Chunks the batched engine schedules for the val set, handed to it in
+    calls of ``calls`` images (the eval CLI's 32), counted from its own
+    schedule."""
     from semseg_tpu_torch.engine import BatchedInferenceEngine
 
-    pyrs, labels = _val_items(cfg, val_dir, odgt)
+    all_pyrs, all_labels = _val_items(cfg, val_dir, odgt)
     eng = _plan_engine(BatchedInferenceEngine, cfg, batch)
-    windows = eng._canvas_windows([lab.shape for lab in labels], range(len(pyrs)))
     chunks = 0
-    for window in windows:
-        groups = eng._group_by_bucket([pyrs[i] if i in window else [] for i in range(len(pyrs))])
-        fill = sorted((k, len(t), len({x[0] for x in t})) for k, t in groups.items())
-        folded = sum(eng._bucket_key(h, w) != k for k, t in groups.items() for *_, h, w in t)
-        if flagship:
-            print(f"[main] window of {len(window)} images: buckets (key, tasks, images) {fill}; "
-                  f"{folded} tasks packed into a larger bucket", flush=True)
-            shared = [f for f in fill if f[2] > 1]
-            padded = [f for f in fill if f[1] % batch]
-            if not shared or not padded:
-                raise RuntimeError("the eval images must share a bucket and pad a last chunk")
-        chunks += len(eng._schedule(groups))
+    for lo in range(0, len(all_pyrs), calls):
+        pyrs, labels = all_pyrs[lo:lo + calls], all_labels[lo:lo + calls]
+        windows = eng._canvas_windows([lab.shape for lab in labels], range(len(pyrs)))
+        for window in windows:
+            groups = eng._group_by_bucket([pyrs[i] if i in window else []
+                                           for i in range(len(pyrs))])
+            fill = sorted((k, len(t), len({x[0] for x in t})) for k, t in groups.items())
+            folded = sum(eng._bucket_key(h, w) != k for k, t in groups.items()
+                         for *_, h, w in t)
+            if flagship:
+                print(f"[main] window of {len(window)} images: buckets (key, tasks, images) "
+                      f"{fill}; {folded} tasks packed into a larger bucket", flush=True)
+                shared = [f for f in fill if f[2] > 1]
+                padded = [f for f in fill if f[1] % batch]
+                if not shared or not padded:
+                    raise RuntimeError("the eval images must share a bucket and pad a last "
+                                       "chunk")
+            chunks += len(eng._schedule(groups))
     return chunks
 
 
@@ -1156,12 +1211,12 @@ def train_phase(work, torch, ppm_pool, card):
     return launches, root, odgt
 
 
-def _train_model(torch, cfg, device, seed=0):
+def _train_model(torch, cfg, device, seed=0, group=None):
     from semseg_tpu_torch.models import ModelBuilder
     from semseg_tpu_torch.parallel import create_train_state
 
     model = ModelBuilder.build_model(cfg, device=device, seed=seed)
-    return create_train_state(cfg, model.train())
+    return create_train_state(cfg, model.train(), group)
 
 
 def loss_falls(torch, root, odgt, card):
@@ -1369,21 +1424,80 @@ def _pct(values, q):
     return values[min(int(len(values) * q), len(values) - 1)]
 
 
-def _serve_traffic(name, server, bodies, refs, agree, card):
+class _SlotRecord:
+    """The bundle's label map of each request predicted alone at every slot
+    of its program's batch (zero images in the other slots, as
+    ``Predictor.predict_batch`` pads a chunk), and a record of the slots
+    that served traffic put each request in. cuDNN's bf16 dilated
+    convolution (``encoder.layer4.0.conv2``) rounds the last sample of a
+    full batch unlike the others (slots 0-2 bit-equal on an H100), and a
+    request served at slot 3 came out at 0.998993 of its slot-0 map: a
+    served map is held against its request predicted at its own slot. A
+    map that took in another slot's request, or lost its own, still
+    fails."""
+
+    def __init__(self, pred, decoded):
+        import numpy as np
+        from PIL import Image
+
+        keys = [pred._pick(*d.shape[:2]) for d in decoded]
+        self.at = [[pred.predict_batch([np.zeros_like(d)] * slot + [d])[slot]
+                    for d in decoded] for slot in range(max(k[0] for k in keys))]
+        # Each request's program input: predict_batch's resize to its bucket.
+        self.inputs = [np.asarray(Image.fromarray(d).resize((bw, bh), Image.BILINEAR),
+                                  np.uint8) for d, (_, bh, bw) in zip(decoded, keys)]
+        self.calls = []
+        for key, program in list(pred.programs.items()):
+            pred.programs[key] = self._recorded(program)
+
+    def _recorded(self, program):
+        def call(params, img_u8):
+            self.calls.append(img_u8)  # a fresh tensor per call, never written
+            return program(params, img_u8)
+        return call
+
+    def spread(self):
+        """The least agreement of a request's map at any slot with its map at
+        slot 0."""
+        return min(float((m == m0).mean()) for row in self.at[1:]
+                   for m, m0 in zip(row, self.at[0]))
+
+    def served(self):
+        """Per request, the slots that the calls since the last ``served``
+        put it in."""
+        import numpy as np
+
+        slots = [set() for _ in self.inputs]
+        for batch in self.calls:
+            for j, x in enumerate(batch.cpu().numpy()):
+                for i, want in enumerate(self.inputs):
+                    if want.shape == x.shape and np.array_equal(want, x):
+                        slots[i].add(j)
+        self.calls.clear()
+        return slots
+
+
+def _serve_traffic(name, server, bodies, lone, agree, card, record=None):
     """Request rounds at each concurrency against a bound server, after a
-    warm round; ``bodies`` are the requests of one round and ``refs`` the
-    backend's own label map of each decoded image, predicted alone. Every
-    answer must be 200. At one client each request is alone in its batch,
-    so its label map must equal its reference. With more clients each map
-    must agree with its own reference within ``agree`` (None: more than
-    with the reference of any other request of its shape; the live
+    warm round; every round sends each of ``bodies`` twice. ``lone`` holds
+    the backend's own label map of each decoded body, predicted alone.
+    Every answer must be 200. At one client each request is alone in its
+    batch, so its label map must equal its reference. With more clients
+    each map must agree with its own reference within ``agree`` (None: more
+    than with the reference of any other request of its shape; the live
     engine's packing may fold a level into a larger bucket with co-batched
-    requests, whose extra zero pad the convolutions carry in). Returns the
+    requests, whose extra zero pad the convolutions carry in). With
+    ``record`` (a ``_SlotRecord``) a map's references are its request's
+    maps predicted alone at the slots the round served it in. Returns the
     batches the backend ran."""
     import io
     import urllib.request
 
     import numpy as np
+
+    def agreement(m, refs):
+        return max([float((m == r).mean()) for r in refs if m is not None
+                    and r.shape == m.shape], default=0.0)
 
     url = f"http://127.0.0.1:{server.server_address[1]}"
     server.serve_background()
@@ -1392,32 +1506,40 @@ def _serve_traffic(name, server, bodies, refs, agree, card):
     print(f"[serve] {name}: /healthz {health}", flush=True)
     if health["status"] != "ok":
         raise RuntimeError(f"{name}: /healthz {health}")
-    _post_all(url + "/segment?format=npy", bodies, max(SERVE_CONCURRENCY))
+    sent = bodies * 2
+    _post_all(url + "/segment?format=npy", sent, max(SERVE_CONCURRENCY))
     batches = 0
     for conc in SERVE_CONCURRENCY:
         server.batcher.reset_stats()
-        wall, results = _post_all(url + "/segment?format=npy", bodies, conc)
+        if record is not None:
+            record.served()
+        wall, results = _post_all(url + "/segment?format=npy", sent, conc)
         with urllib.request.urlopen(url + "/stats", timeout=60) as resp:
             stats = json.load(resp)
         bad = [st for st, _, _ in results if st != 200]
         lats = [t * 1e3 for _, t, _ in results]
-        maps = [np.load(io.BytesIO(p)) for st, _, p in results if st == 200]
-        shares = [float((m == r).mean()) if m.shape == r.shape else 0.0
-                  for m, r in zip(maps, refs)]
-        others = [max([float((m == r).mean()) for r in refs
-                       if r.shape == m.shape and r is not own], default=0.0)
-                  for m, own in zip(maps, refs)]
-        print(f"[serve] {name}, {conc} client(s), {len(bodies)} requests: "
-              f"{len(bodies) / wall:.2f} req/s, mean_batch_fill {stats['mean_batch_fill']:.2f} "
+        maps = [np.load(io.BytesIO(p)) if st == 200 else None for st, _, p in results]
+        slots = None if record is None else record.served()
+        refs = ([[m] for m in lone] if slots is None else
+                [[record.at[j][i] for j in sorted(js)] for i, js in enumerate(slots)])
+        own = [k % len(bodies) for k in range(len(sent))]
+        shares = [agreement(m, refs[i]) for m, i in zip(maps, own)]
+        alone = [agreement(m, [lone[i]]) for m, i in zip(maps, own)]
+        others = [max([agreement(m, [r]) for j, r in enumerate(lone) if j != i], default=0.0)
+                  for m, i in zip(maps, own)]
+        at_slot = "" if slots is None else (
+            f", at the slots its request was served in {min(shares):.6f} (requests per slot "
+            f"{[sum(j in js for js in slots) for j in range(len(record.at))]})")
+        print(f"[serve] {name}, {conc} client(s), {len(sent)} requests: "
+              f"{len(sent) / wall:.2f} req/s, mean_batch_fill {stats['mean_batch_fill']:.2f} "
               f"({stats['batches']} batches), /stats latency p50 {stats['latency_ms_p50']:.1f} / "
               f"p95 {stats['latency_ms_p95']:.1f} ms, client p50 {_pct(lats, 0.5):.1f} / p95 "
               f"{_pct(lats, 0.95):.1f} / max {max(lats):.1f} ms, non-200 {len(bad)}; each map "
-              f"against its request predicted alone: agreement min "
-              f"{min(shares, default=0.0):.6f} (closest other request max "
-              f"{max(others, default=0.0):.6f}); card: {card}", flush=True)
-        if bad or stats["errors"] or stats["requests"] != len(bodies):
+              f"against its request predicted alone: agreement min {min(alone):.6f}{at_slot} "
+              f"(closest other request max {max(others):.6f}); card: {card}", flush=True)
+        if bad or stats["errors"] or stats["requests"] != len(sent):
             raise RuntimeError(f"{name}, {conc} clients: statuses {bad}, stats {stats}")
-        if len(shares) != len(bodies) or min(shares) < (1.0 if conc == 1 else agree or 0.0) \
+        if min(shares) < (1.0 if conc == 1 else agree or 0.0) \
                 or (agree is None and any(a <= b for a, b in zip(shares, others))):
             raise RuntimeError(f"{name}, {conc} clients: a label map departs from the "
                                f"backend's own: agreement {shares}, with the closest other "
@@ -1519,9 +1641,13 @@ def serving_phase(work, ckpt, torch, ppm_pool, card):
           f"(seed 0): {shapes}; sent twice per round", flush=True)
     launches = {"dense": 0, "valid": 0}
 
-    refs = [pred.predict(d) for d in decoded]
+    lone = [pred.predict(d) for d in decoded]
+    record = _SlotRecord(pred, decoded)
+    print(f"[serve] each request predicted alone at each slot of its batch of "
+          f"{len(record.at)}: least agreement with its slot-0 map {record.spread():.6f}",
+          flush=True)
     batches, _, dense, valid = _run_path("cli.serve --bundle traffic", lambda: _serve_traffic(
-        "bundle", server, bodies * 2, refs * 2, AGREE, card), ppm_pool, torch)
+        "bundle", server, bodies, lone, AGREE, card, record), ppm_pool, torch)
     server.close()
     if not (batches <= dense <= 2 * batches and valid == 0):
         raise RuntimeError(f"bundle traffic: {batches} batches, launches dense {dense} / "
@@ -1531,9 +1657,9 @@ def serving_phase(work, ckpt, torch, ppm_pool, card):
     server, (live,) = serve_cli.build_server(
         ["--cfg", CFG, "--host", "127.0.0.1", "--port", "0", "--quiet", "--max-batch", "8",
          "DIR", ckpt])
-    refs = [live.predict_batch([d])[0] for d in decoded]
+    lone = [live.predict_batch([d])[0] for d in decoded]
     _, _, dense, valid = _run_path("cli.serve --cfg (live) traffic", lambda: _serve_traffic(
-        "live 5 scales", server, bodies * 2, refs * 2, None, card), ppm_pool, torch)
+        "live 5 scales", server, bodies, lone, None, card), ppm_pool, torch)
     server.close()
     if dense or not valid:
         raise RuntimeError(f"live traffic: launches dense {dense} / valid {valid}")
@@ -1581,6 +1707,387 @@ def serving_f32(work, ckpt, torch, Predictor, export_serving):
           f"{agree:.6f} (limit {AGREE})", flush=True)
     if agree < AGREE:
         raise RuntimeError("the f32 bundle on the card disagrees with the CPU")
+
+
+def _dp_batches(world):
+    """Each of ``world`` ranks' host batch: one f32 image and its labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(12)
+    out = []
+    for (h, w), void in DP_IMAGES[:world]:
+        labels = rng.randint(0, 150, (1, h // 8, w // 8)).astype(np.int32)
+        labels[rng.rand(*labels.shape) < void] = -1
+        out.append({"img_data": rng.randn(1, h, w, 3).astype(np.float32), "seg_label": labels})
+    return out
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in tensors.items():
+        h.update(k.encode() + v.detach().cpu().contiguous().view(-1).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _timed_steps(torch, state, batch, train_step, dropout_generator):
+    """The first step, then DP_TIMED_STEPS timed ones; returns (the first
+    step's loss and accuracy, its compared state, seconds of each timed
+    step). Compared after the first step: in f32 later steps part (§8)."""
+    m = train_step(state, batch, dropout_generator(0, 0))
+    first = (float(m["loss"]), float(m["acc"]))
+    params = dict(state.model.named_parameters())
+    buffers = state.model.state_dict()
+    snap = {"grads": {k: params[k].grad.to("cpu", copy=True) for k in DP_GRADS},
+            "stats": {k: v.to("cpu", copy=True) for k, v in buffers.items() if "running" in k},
+            "digest": _digest({**buffers, **{k + ".grad": p.grad for k, p in params.items()}})}
+    seconds = []
+    for i in range(1, 1 + DP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        m = train_step(state, batch, dropout_generator(0, i))
+        float(m["loss"])
+        seconds.append(time.perf_counter() - tic)
+    return first, snap, seconds
+
+
+def _dp_rank(rank, port, out, devices, backend):
+    """Rank ``rank`` of ``dp_ranks`` on ``devices[rank]`` (a spawned
+    process)."""
+    import torch
+    import torch.distributed as dist
+
+    from semseg_tpu_torch.ops.kernels import ppm_pool
+    from semseg_tpu_torch.parallel import distributed, dropout_generator, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = distributed.initialize(f"127.0.0.1:{port}", len(devices), rank, backend=backend,
+                                    device=devices[rank], timeout=600)
+    try:
+        state = _train_model(torch, _cfg("TPU.compute_dtype", "float32"), device,
+                             group=dist.group.WORLD)
+        host = distributed._sync_batch_canvas(_dp_batches(len(devices))[rank],
+                                              distributed.CanvasExchange("smoke"))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        torch.cuda.synchronize()
+        ppm_pool.LAUNCHES = ppm_pool.VALID_LAUNCHES = ppm_pool.BACKWARD_LAUNCHES = 0
+        first, snap, seconds = _timed_steps(torch, state, batch, train_step, dropout_generator)
+        launches = (ppm_pool.LAUNCHES, ppm_pool.VALID_LAUNCHES, ppm_pool.BACKWARD_LAUNCHES)
+        # One more step under the profiler, on every rank (the collectives
+        # need them all): its device kernel time, and the collectives' part.
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            float(train_step(state, batch, dropout_generator(0, 99))["loss"])
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        nccl = sum(e.self_device_time_total for e in kernels if "nccl" in e.key.lower()) / 1e3
+        torch.save({"metrics": first, "seconds": seconds, "launches": launches,
+                    "shape": tuple(host["img_data"].shape), "profile": (busy, nccl), **snap},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def dp_ranks(work, torch, card, devices, backend, tag):
+    """Ranks on ``devices`` (one each) over ``backend``, one image each,
+    against one process on ``CARD`` with the joined, padded batch: phase
+    10 (a) (two gloo ranks on cuda:0) and the multi-card check (NCCL, a rank
+    per card). Returns the ranks' launches."""
+    import numpy as np
+
+    from semseg_tpu_torch.parallel import distributed, dropout_generator, train_step
+
+    world = len(devices)
+    out = os.path.join(work, f"dp_ranks_{world}_{backend}")
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    tic = time.perf_counter()
+    torch.multiprocessing.spawn(_dp_rank, args=(distributed.free_port(), out, devices, backend),
+                                nprocs=world)
+    ranks_s = time.perf_counter() - tic
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    steps = 1 + DP_TIMED_STEPS
+    for r, got in enumerate(ranks):
+        if got["launches"] != (steps, 0, steps):
+            raise RuntimeError(f"rank {r}: pyramid_pool launches dense / valid / backward "
+                               f"{got['launches']}, expected {steps} / 0 / {steps}")
+        if got["digest"] != ranks[0]["digest"] or got["metrics"] != ranks[0]["metrics"]:
+            raise RuntimeError(f"rank {r}'s state or metrics differ from rank 0's after the step")
+
+    # One process, the same weights, the ranks' images padded to one canvas.
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    host = _dp_batches(world)
+    joined = {}
+    for k, v in (("img_data", 0.0), ("seg_label", -1)):
+        hw = np.max([b[k].shape[1:3] for b in host], axis=0)
+        joined[k] = np.concatenate([np.pad(b[k], [(0, 0), (0, hw[0] - b[k].shape[1]),
+                                                  (0, hw[1] - b[k].shape[2])]
+                                           + [(0, 0)] * (b[k].ndim - 3), constant_values=v)
+                                    for b in host])
+    if tuple(joined["img_data"].shape[1:]) != tuple(ranks[0]["shape"][1:]):
+        raise RuntimeError(f"canvas {ranks[0]['shape']} against {joined['img_data'].shape}")
+    state = _train_model(torch, _cfg("TPU.compute_dtype", "float32"), CARD)
+    batch = {k: torch.from_numpy(v).to(CARD) for k, v in joined.items()}
+    (loss, acc), snap, seconds = _timed_steps(torch, state, batch, train_step,
+                                              dropout_generator)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    grads = {k: float((ranks[0]["grads"][k] - v).norm() / v.norm())
+             for k, v in snap["grads"].items()}
+    stat_rel, stat_key, iters_equal = 0.0, "", True
+    for k, b in snap["stats"].items():
+        a = ranks[0]["stats"][k]
+        if k.endswith("_running_iter"):
+            iters_equal = iters_equal and torch.equal(a, b)
+            continue
+        rel = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        stat_rel, stat_key = max((stat_rel, stat_key), (rel, k))
+    r_loss, r_acc = ranks[0]["metrics"]
+    loss_rel = abs(r_loss - loss) / abs(loss)
+    print(f"{tag} {world} {backend} ranks on {sorted(set(map(str, devices)))} (images "
+          f"{[hw for hw, _ in DP_IMAGES[:world]]} padded to {ranks[0]['shape'][1:3]}), f32, "
+          f"TF32 off, dropout on, against one process on {CARD} with the joined batch of "
+          f"{world}: loss {r_loss:.6f} vs {loss:.6f}, "
+          f"relative {loss_rel:.2e} (limit {LOSS_REL}); accuracy {r_acc:.6f} vs {acc:.6f} "
+          f"(limit {DP_ACC}); gradients, relative norm error (limit {GRAD_REL}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in grads.items())
+          + f"; BN statistics max |d| / max {stat_rel:.2e} ({stat_key}; limit {STAT_REL}); "
+          f"iter equal {iters_equal}; all ranks' states bit-equal; per rank pyramid_pool "
+          f"dense {ranks[0]['launches'][0]}, backward {ranks[0]['launches'][2]} over {steps} "
+          f"steps", flush=True)
+    busy, nccl = ranks[0]["profile"]
+    print(f"{tag} timing, a smoke: {np.median(ranks[0]['seconds']) * 1e3:.1f} ms/step median "
+          f"of {DP_TIMED_STEPS} for the {world} ranks (batch 1 each) against "
+          f"{np.median(seconds) * 1e3:.1f} ms/step for one process at batch {world} (one "
+          f"process cannot train at batch 1: the PPM's 1x1 grid has one value); rank 0's "
+          f"profiled step: device kernels {busy:.1f} ms, of which NCCL kernels {nccl:.1f} ms; "
+          f"the ranks' processes took "
+          f"{ranks_s:.1f} s from spawn to exit (card: {card})", flush=True)
+    if not (loss_rel < LOSS_REL and abs(r_acc - acc) < DP_ACC and stat_rel < STAT_REL
+            and iters_equal and all(v < GRAD_REL for v in grads.values())):
+        raise RuntimeError(f"{world} ranks disagree with one process")
+    return {"dense": sum(r["launches"][0] for r in ranks),
+            "backward": sum(r["launches"][2] for r in ranks)}
+
+
+def dp_nccl_world_of_one(torch, ppm_pool, train_root, train_odgt, work, card):
+    """Phase 10 (b): ``cli.train --multihost`` as a world of 1 on NCCL, from
+    the SEMSEG_* variables, against two single-card ``cli.train`` runs on
+    phase 8's data and settings (one loader worker, so that the runs see
+    one batch order; every step logged). Returns its launches."""
+    import torch.distributed as dist
+
+    from semseg_tpu_torch.cli import train as train_cli
+    from semseg_tpu_torch.parallel import distributed
+
+    opts = [*_train_cfg_opts(train_root, train_odgt), "TRAIN.num_epoch", "1",
+            "TRAIN.disp_iter", "1", "TRAIN.workers", "1"]
+    backends = []
+    initialize = distributed.initialize
+
+    def spy(*args, **kwargs):
+        device = initialize(*args, **kwargs)
+        backends.append(dist.get_backend())
+        return device
+
+    losses = {}
+    env = {"SEMSEG_COORDINATOR": f"127.0.0.1:{distributed.free_port()}",
+           "SEMSEG_NUM_PROCESSES": "1", "SEMSEG_PROCESS_ID": "0"}
+    runs = [("single card A", []), ("single card B", []),
+            ("--multihost NCCL world of 1", ["--multihost"])]
+    while runs:
+        name, flags = runs.pop(0)
+        out = os.path.join(work, "dp_" + name.split()[-1])
+        multihost = bool(flags)
+        if multihost:
+            os.environ.update(env)
+            distributed.initialize = spy
+        try:
+            (_, history), seconds, dense, valid = _run_path(
+                f"cli.train {name}", lambda: train_cli.main(
+                    ["--cfg", CFG, *flags, "DIR", out, *opts]), ppm_pool, torch,
+                backward=TRAIN_ITERS)
+        finally:
+            if multihost:
+                distributed.initialize = initialize
+                for k in env:
+                    del os.environ[k]
+        if (dense, valid) != (TRAIN_ITERS, 0):
+            raise RuntimeError(f"cli.train {name}: launches dense {dense} / valid {valid}")
+        losses[name] = history["train"]["loss"]
+        print(f"[dp] (b) cli.train {name}: per-step losses {losses[name]} ({seconds:.1f} s "
+              f"wall; card: {card})", flush=True)
+        if name.endswith("B") and losses[name] != losses["single card A"]:
+            runs.insert(0, ("single card C", []))
+    m = losses.pop("--multihost NCCL world of 1")
+    singles = list(losses.values())
+
+    def distance(p, q):
+        return max(abs(x - y) for x, y in zip(p, q))
+
+    spread = max(distance(p, q) for i, p in enumerate(singles) for q in singles[i + 1:])
+    nearest = min(distance(p, m) for p in singles)
+    # A world of 1 does the single card's arithmetic, so it must repeat its
+    # losses bit for bit where two single-card runs do. Otherwise (the
+    # backward's atomic adds order differently from run to run) the first
+    # step is still bit-equal (a forward), and the nearest of three
+    # single-card runs lies within 3x the largest distance between two of
+    # them (with independent normal run-to-run noise that fails 0.2% of
+    # correct runs; twice, 1.2%).
+    first_equal = all(p[0] == m[0] for p in singles)
+    print(f"[dp] (b) backend in use {backends}; run-to-run spread (max |d| per step) of "
+          f"{len(singles)} single-card runs {spread:.3e}; the NCCL world of 1 against the "
+          f"nearest {nearest:.3e} (limit {3 * spread:.3e}); first step bit-equal "
+          f"{first_equal}", flush=True)
+    if backends != ["nccl" if CARD == "cuda" else "gloo"] or len(m) != TRAIN_ITERS \
+            or not first_equal or nearest > 3 * spread:
+        raise RuntimeError(f"cli.train --multihost: backend {backends}, losses {m} against "
+                           f"the single-card runs' {singles} (spread {spread})")
+    if dist.is_initialized():
+        raise RuntimeError("cli.train --multihost left its process group behind")
+    return {"dense": TRAIN_ITERS, "backward": TRAIN_ITERS}
+
+
+def _count_calls(engine, name, counts, i):
+    real = getattr(engine, name)
+
+    def counted(*args, **kwargs):
+        counts[i] += 1
+        return real(*args, **kwargs)
+
+    setattr(engine, name, counted)
+
+
+def dp_two_engines(ckpt, val_dir, odgt, torch, ppm_pool, card):
+    """Phase 10 (c): ``cli.eval``'s engines, one and two on cuda:0, through
+    ``build_engines``' device list: ``--exact`` sums equal, the default
+    batched path within PARITY.md's bucketed bar. Returns the two-engine
+    runs' launches."""
+    import logging
+
+    import numpy as np
+
+    from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
+    from semseg_tpu_torch.cli import eval as eval_cli
+
+    cfg = _cfg("DIR", ckpt, "DATASET.root_dataset", val_dir, "DATASET.list_val", odgt)
+    resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
+    logger = logging.getLogger("dp-eval")
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    n_scales = len(cfg.DATASET.imgSizes)
+    results, launches = {}, {"dense": 0, "valid": 0}
+    for mode, kw, method in (("exact", dict(exact=True), "predict"),
+                             ("batched", dict(batch=4, fetch_dtype="bfloat16",
+                                              pack_buckets=True), "batched_metrics")):
+        device = "cuda:0" if CARD == "cuda" else CARD
+        for devices in ([device], [device, device]):
+            engines = eval_cli.build_engines(cfg, devices=devices, **kw)
+            calls = [0] * len(engines)
+            for i, e in enumerate(engines):
+                _count_calls(e, method, calls, i)
+            chunk = eval_cli.CHUNK
+            if len(engines) > 1:
+                eval_cli.CHUNK = DP_EVAL_CHUNK
+            try:
+                loader = eval_cli.make_loader(cfg, engines, exact=mode == "exact")
+                (miou, acc, _, raw), seconds, dense, valid = _run_path(
+                    f"{mode} eval on {len(engines)} engine(s)", lambda: eval_cli.evaluate(
+                        engines, loader, cfg, logger), ppm_pool, torch)
+                calls_per = eval_cli.CHUNK
+            finally:
+                eval_cli.CHUNK = chunk
+            want = ((len(EVAL_IMAGES) * n_scales, 0) if mode == "exact" else
+                    (0, expected_chunks(cfg, val_dir, odgt, flagship=False, calls=calls_per)))
+            if (dense, valid) != want:
+                raise RuntimeError(f"{mode} eval on {len(engines)} engine(s): launches "
+                                   f"{dense} / {valid}, expected {want}")
+            if len(engines) > 1:
+                launches["dense"] += dense
+                launches["valid"] += valid
+            results[mode, len(engines)] = (miou, raw)
+            print(f"[dp] (c) {mode} eval on {devices}: mIoU {miou:.6f}, accuracy "
+                  f"{acc * 100:.4f}%, {raw['pix_count']:.0f} pixels; calls per engine {calls}; "
+                  f"pyramid_pool dense {dense}, valid_hw {valid}; {seconds:.1f} s wall "
+                  f"(card: {card})", flush=True)
+            if mode == "exact" and min(calls) == 0:
+                raise RuntimeError(f"an engine took no image: {calls}")
+    (_, one), (_, two) = results["exact", 1], results["exact", 2]
+    equal = all(np.array_equal(one[k], two[k]) for k in ("inter", "union", "pix_count"))
+    acc_rel = abs(one["acc_sum"] - two["acc_sum"]) / one["acc_sum"]
+    d_miou = abs(results["batched", 1][0] - results["batched", 2][0])
+    print(f"[dp] (c) --exact sums, two engines against one: intersection, union and pixels "
+          f"equal {equal}, accuracy sum relative {acc_rel:.1e} (float sums in thread order); "
+          f"batched mIoU |d| {d_miou:.2e} (limit {BUCKETED_MIOU})", flush=True)
+    if not (equal and acc_rel < 1e-12 and d_miou <= BUCKETED_MIOU):
+        raise RuntimeError("two engines on one card disagree with one engine")
+    return launches
+
+
+def data_parallel_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_root,
+                        train_odgt):
+    """Phase 10: data parallel on one card, (a)-(c). Returns its launches."""
+    start = time.perf_counter()
+    device = "cuda:0" if CARD == "cuda" else CARD
+    a = dp_ranks(work, torch, card, [device, device], "gloo",
+                 "[dp] (a) (gloo through the host, ranks sharing one card)")
+    b = dp_nccl_world_of_one(torch, ppm_pool, train_root, train_odgt, work, card)
+    c = dp_two_engines(ckpt, val_dir, odgt, torch, ppm_pool, card)
+    print(f"[dp] phase 10 took {time.perf_counter() - start:.1f} s (card: {card})", flush=True)
+    return {"dense": a["dense"] + b["dense"] + c["dense"], "valid": c["valid"],
+            "backward": a["backward"] + b["backward"]}
+
+
+def multi_card_phase(work, torch, card, ckpt, val_dir, odgt, train_root, train_odgt):
+    """With more than one visible card: a rank per card over NCCL. The ranks
+    against one process (as phase 10 (a)); ``cli.train --devices N`` for one
+    epoch on phase 8's data (rank 0 writes the checkpoint); ``cli.eval
+    --exact`` on N engines against one engine (the sums equal)."""
+    import numpy as np
+
+    from semseg_tpu_torch.cli import eval as eval_cli, train as train_cli
+
+    n = torch.cuda.device_count()
+    start = time.perf_counter()
+    dp_ranks(work, torch, card, [f"cuda:{r}" for r in range(n)], "nccl", "[multi]")
+
+    out = os.path.join(work, "multi_train")
+    tic = time.perf_counter()
+    result = train_cli.main(["--cfg", CFG, "--devices", str(n), "DIR", out,
+                             *_train_cfg_opts(train_root, train_odgt), "TRAIN.num_epoch", "1",
+                             "TRAIN.disp_iter", "1", "TRAIN.workers", "1"])
+    wall = time.perf_counter() - tic
+    with open(os.path.join(out, "history_epoch_1.json")) as f:
+        losses = json.load(f)["train"]["loss"]
+    if result is not None or len(losses) != TRAIN_ITERS or not np.all(np.isfinite(losses)) \
+            or not os.path.exists(os.path.join(out, "encoder_epoch_1.pth")):
+        raise RuntimeError(f"cli.train --devices {n}: result {result}, losses {losses}")
+    print(f"[multi] cli.train --devices {n}: {TRAIN_ITERS} steps at batch 2 per card (global "
+          f"{2 * n}), bf16, full width; per-step global losses {losses}; {wall:.1f} s wall "
+          f"(spawn, model builds and the checkpoint included; card: {card})", flush=True)
+
+    data = ["DIR", ckpt, "DATASET.root_dataset", val_dir, "DATASET.list_val", odgt]
+    raws = {}
+    for devices in (1, n):
+        tic = time.perf_counter()
+        raws[devices] = eval_cli.main(["--cfg", CFG, "--exact", "--devices", str(devices),
+                                       *data])[3]
+        print(f"[multi] cli.eval --exact --devices {devices}: {time.perf_counter() - tic:.1f} "
+              f"s wall for {len(EVAL_IMAGES)} images (model builds included; card: {card})",
+              flush=True)
+    one, many = raws[1], raws[n]
+    if not (all(np.array_equal(one[k], many[k]) for k in ("inter", "union", "pix_count"))
+            and abs(one["acc_sum"] - many["acc_sum"]) <= 1e-12 * one["acc_sum"]):
+        raise RuntimeError(f"cli.eval --exact on {n} cards disagrees with one card")
+    print(f"[multi] --exact sums on {n} engines (one per card) equal one engine's; the "
+          f"multi-card phase took {time.perf_counter() - start:.1f} s (card: {card})",
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -1647,6 +2154,12 @@ def main(argv=None) -> int:
         loss_falls(torch, train_root, train_odgt, card)
         train_card_vs_cpu(torch, ppm_pool)
         train_steady_state(torch, card)
+        dp_launches = data_parallel_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt,
+                                          train_root, train_odgt)
+        for form in ("dense", "valid"):
+            launches[form] += dp_launches[form]
+        if torch.cuda.device_count() > 1:
+            multi_card_phase(work, torch, card, ckpt, val_dir, odgt, train_root, train_odgt)
 
     def numbers(case):
         # bf16 at the first timed case of the form; no single PyTorch call
@@ -1667,7 +2180,8 @@ def main(argv=None) -> int:
         {"name": "pyramid_pool_backward", **entry,
          # No Pallas backward exists: JAX differentiates XLA's pool here.
          "replaces": "semseg_tpu/ops/pool.py:55",
-         "launches": train_launches["backward"], "max_abs_err": backward_err,
+         "launches": train_launches["backward"] + dp_launches["backward"],
+         "max_abs_err": backward_err,
          **dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by"),
                     backward_times[(BACKWARD_TIMED[0], "bfloat16")])), "library_ms": None},
     ]}))

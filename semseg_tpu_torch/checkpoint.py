@@ -17,6 +17,12 @@ Training writes, per epoch N, into ``cfg.DIR``:
 ``AsyncSaver`` first copies the state on the device, then writes on one
 thread while training goes on: PyTorch's optimizer updates the parameters
 in place, so a writer reading the live tensors would race the next step.
+
+In a data-parallel run every rank holds the same state, and only the
+primary writes (``AsyncSaver`` too). ``save_train_state`` ends in a
+barrier, so no rank goes on to read a file still being written; the
+training CLI puts one after ``AsyncSaver.close()``. On resume every rank
+reads the file onto its own card.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from semseg_tpu_torch.models.convert import load_reference_pth, reference_state_dict
+from semseg_tpu_torch.parallel.distributed import barrier, is_primary
 
 # The published ImageNet backbones (reference resnet.py, mobilenet.py,
 # hrnet.py, resnext.py): only the file name is used, to find a copy in the
@@ -101,8 +108,11 @@ def _write(ckpt_dir: str, epoch: int, snap: dict) -> None:
 
 
 def save_train_state(ckpt_dir: str, epoch: int, state, history=None) -> None:
-    """Write epoch ``epoch``'s files (module docstring) now."""
-    _write(ckpt_dir, epoch, _snapshot(state, history))
+    """Write epoch ``epoch``'s files (module docstring) now, from the
+    primary; every rank returns once they are written."""
+    if is_primary():
+        _write(ckpt_dir, epoch, _snapshot(state, history))
+    barrier()
 
 
 def restore_train_state(ckpt_dir: str, epoch: int, state):
@@ -126,7 +136,7 @@ class AsyncSaver:
     tensor) and returns; the device → host copy and the file writes run on
     one worker thread, overlapping the next epoch. A worker's error
     surfaces at the next ``save()``/``wait()``; ``close()`` waits for the
-    last write.
+    last write. On a rank other than the primary ``save()`` does nothing.
     """
 
     def __init__(self):
@@ -134,6 +144,8 @@ class AsyncSaver:
         self._pending = []
 
     def save(self, ckpt_dir: str, epoch: int, state, history=None):
+        if not is_primary():
+            return
         self.wait()
         snap = _snapshot(state, history)
         event = None

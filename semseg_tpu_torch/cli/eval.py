@@ -1,4 +1,4 @@
-"""Evaluation CLI (``semseg_tpu/cli/eval.py``), one device.
+"""Evaluation CLI (``semseg_tpu/cli/eval.py``), on one device or several.
 
 Multi-scale evaluation over a val odgt with mIoU and pixel accuracy. By
 default the batched engine runs the protocol the JAX CLI ships: uint8
@@ -10,15 +10,24 @@ computation over host float pyramids. ``--device-pyramid`` (batched only,
 no ``--exact``, no ``VAL.visualize``) uploads each original once and
 derives its levels on the device; originals larger than the engine's
 canvas fall back to host pyramids.
+
+``--devices N`` builds one engine per card (the first N visible; with
+``--device cpu``, N engines on the CPU), and the engines take chunks of the
+val set in turn, one thread each, as the JAX CLI does
+(``cli/eval_multipro.py`` defaults to every visible card). Several hosts
+each evaluate a slice (``--start-idx/--end-idx --metrics-out``) and
+``tools/combine_eval_shards.py`` sums the slices.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import threading
 import time
 
 import numpy as np
+import torch
 
 from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
 from semseg_tpu_torch.config import cfg as _default_cfg
@@ -31,6 +40,7 @@ from semseg_tpu_torch.engine import (
     output_stride_for,
 )
 from semseg_tpu_torch.models import ModelBuilder
+from semseg_tpu_torch.parallel.distributed import visible_cards
 from semseg_tpu_torch.utils import (
     AverageMeter,
     accuracy,
@@ -55,110 +65,159 @@ def visualize_result(item, pred, save_dir):
     Image.fromarray(im_vis.astype(np.uint8)).save(os.path.join(save_dir, name))
 
 
+def engine_devices(device, count: int = 1):
+    """The devices of ``count`` engines: for a bare ``cuda`` the first
+    ``min(count, visible)`` cards (the JAX package's ``make_mesh``), else
+    ``count`` times ``device``."""
+    d = torch.device(device)
+    if count <= 1 or d.type != "cuda" or d.index is not None:
+        return [device] * max(count, 1)
+    return [torch.device("cuda", i) for i in range(visible_cards(count))]
+
+
 def build_engines(cfg, num_devices=1, exact=False, batch=0, fetch_dtype=None,
-                  pack_buckets=False, *, device_pyramid=False, device="cuda"):
-    """The engine over the model that ``cfg`` names, on ``device``, as a
-    one-element list (the JAX CLI's shape): the exact engine with
-    ``exact``; for ``batch > 1`` the device-pyramid engine with
-    ``device_pyramid``, else the batched engine; otherwise the bucketed
-    per-image engine."""
-    if num_devices != 1:
-        raise NotImplementedError("the port evaluates on one device (multi-GPU: ROADMAP item 11)")
-    model = ModelBuilder.build_model(cfg, device=device)
-    kw = dict(
-        num_class=cfg.DATASET.num_class,
-        device=device,
-        exact=exact,
-        output_stride=output_stride_for(cfg),
-        # The engine's grouping lattice must equal the dataset's resize
-        # lattice, both aligned to the architecture's padding_constant.
-        bucket_step=_effective_lattice(cfg.TPU.eval_bucket_step, cfg.DATASET.padding_constant),
-        padding_constant=cfg.DATASET.padding_constant,
-        fetch_dtype=fetch_dtype,
-    )
-    if batch > 1 and not exact and device_pyramid:
-        return [DevicePyramidEngine(model, batch_size=batch, pack_buckets=pack_buckets,
-                                    img_sizes=cfg.DATASET.imgSizes,
-                                    img_max_size=cfg.DATASET.imgMaxSize, **kw)]
-    if batch > 1 and not exact:
-        return [BatchedInferenceEngine(model, batch_size=batch,
-                                       pack_buckets=pack_buckets, **kw)]
-    return [InferenceEngine(model, **kw)]
-
-
-def _chunks(loader, size):
-    chunk = []
-    for item in loader:
-        chunk.append(item)
-        if len(chunk) == size:
-            yield chunk
-            chunk = []
-    if chunk:
-        yield chunk
+                  pack_buckets=False, *, device_pyramid=False, device="cuda", devices=None):
+    """One engine over the model that ``cfg`` names per device of
+    ``devices`` (default ``engine_devices(device, num_devices)``; a device
+    may repeat): the exact engine with ``exact``; for ``batch > 1`` the
+    device-pyramid engine with ``device_pyramid``, else the batched engine;
+    otherwise the bucketed per-image engine."""
+    if devices is None:
+        devices = engine_devices(device, num_devices)
+    engines = []
+    for dev in devices:
+        model = ModelBuilder.build_model(cfg, device=dev)
+        kw = dict(
+            num_class=cfg.DATASET.num_class,
+            device=dev,
+            exact=exact,
+            output_stride=output_stride_for(cfg),
+            # The engine's grouping lattice must equal the dataset's resize
+            # lattice, both aligned to the architecture's padding_constant.
+            bucket_step=_effective_lattice(cfg.TPU.eval_bucket_step,
+                                           cfg.DATASET.padding_constant),
+            padding_constant=cfg.DATASET.padding_constant,
+            fetch_dtype=fetch_dtype,
+        )
+        if batch > 1 and not exact and device_pyramid:
+            engines.append(DevicePyramidEngine(
+                model, batch_size=batch, pack_buckets=pack_buckets,
+                img_sizes=cfg.DATASET.imgSizes, img_max_size=cfg.DATASET.imgMaxSize, **kw))
+        elif batch > 1 and not exact:
+            engines.append(BatchedInferenceEngine(model, batch_size=batch,
+                                                  pack_buckets=pack_buckets, **kw))
+        else:
+            engines.append(InferenceEngine(model, **kw))
+    return engines
 
 
 def evaluate(engines, loader, cfg, logger, visualize=False, vis_dir=None):
-    """Run the engine over ``loader``; returns (mIoU, accuracy, IoU, raw sums)."""
-    (engine,) = engines
+    """Run the engines over ``loader``; returns (mIoU, accuracy, IoU, raw sums).
+
+    One thread per engine takes the next chunk of the loader's items
+    (``CHUNK`` images for a batched engine, one for a per-image engine)
+    from a shared iterator until it runs dry; the metric sums are added
+    under a lock, and the first error of any thread is raised here.
+    """
     num_class = cfg.DATASET.num_class
     acc_meter = AverageMeter()
     time_meter = AverageMeter()
     inter_sum = np.zeros(num_class, np.float64)
     union_sum = np.zeros(num_class, np.float64)
+    lock = threading.Lock()
+    items = iter(loader)
+    items_lock = threading.Lock()
 
-    def score_one(item, pred):
+    def next_chunk(size):
+        out = []
+        with items_lock:
+            for item in items:
+                out.append(item)
+                if len(out) == size:
+                    break
+        return out
+
+    def add(acc, pix, inter, union, seconds):
         nonlocal inter_sum, union_sum
+        with lock:
+            acc_meter.update(acc, pix)
+            inter_sum += inter
+            union_sum += union
+            time_meter.update(seconds)
+
+    def score_one(item, pred, seconds):
         seg_label = np.asarray(item["seg_label"][0])
         acc, pix = accuracy(pred, seg_label)
         inter, union = intersectionAndUnion(pred, seg_label, num_class)
-        acc_meter.update(acc, pix)
-        inter_sum += inter
-        union_sum += union
+        add(acc, pix, inter, union, seconds)
         if visualize:
             visualize_result(item, pred, vis_dir)
 
-    if isinstance(engine, BatchedInferenceEngine):
-        for chunk in _chunks(loader, CHUNK):
-            labels = [np.asarray(it["seg_label"][0]) for it in chunk]
-            tic = time.perf_counter()
-            if not visualize:
-                # Only the packed metric vectors leave the device. Items
-                # with an empty host pyramid take the device-pyramid path;
-                # oversized originals keep their host pyramids.
-                dp = [k for k, it in enumerate(chunk) if not it["img_data"]]
-                host = [k for k, it in enumerate(chunk) if it["img_data"]]
-                metrics = [None] * len(chunk)
-                if dp:
-                    out = engine.batched_metrics_from_originals(
-                        [chunk[k]["img_ori"] for k in dp], [labels[k] for k in dp])
-                    for k, m in zip(dp, out):
-                        metrics[k] = m
-                if host:
-                    out = engine.batched_metrics([chunk[k]["img_data"] for k in host],
-                                                 [labels[k] for k in host])
-                    for k, m in zip(host, out):
-                        metrics[k] = m
-                elapsed = (time.perf_counter() - tic) / len(chunk)
-                for acc_sum, pix_sum, inter, union in metrics:
-                    acc_meter.update(float(acc_sum) / (float(pix_sum) + 1e-10), int(pix_sum))
-                    inter_sum += inter.astype(np.float64)
-                    union_sum += union.astype(np.float64)
-                    time_meter.update(elapsed)
+    def run_batched(engine, chunk):
+        labels = [np.asarray(it["seg_label"][0]) for it in chunk]
+        tic = time.perf_counter()
+        if visualize:
+            # Visualization needs the prediction maps on the host.
+            preds = engine.batched_predict([it["img_data"] for it in chunk],
+                                           [lab.shape for lab in labels])
+            elapsed = (time.perf_counter() - tic) / len(chunk)
+            for item, pred in zip(chunk, preds):
+                score_one(item, pred, elapsed)
+            return
+        # Only the packed metric vectors leave the device. Items with an
+        # empty host pyramid take the device-pyramid path; oversized
+        # originals keep their host pyramids.
+        dp = [k for k, it in enumerate(chunk) if not it["img_data"]]
+        host = [k for k, it in enumerate(chunk) if it["img_data"]]
+        metrics = [None] * len(chunk)
+        if dp:
+            out = engine.batched_metrics_from_originals(
+                [chunk[k]["img_ori"] for k in dp], [labels[k] for k in dp])
+            for k, m in zip(dp, out):
+                metrics[k] = m
+        if host:
+            out = engine.batched_metrics([chunk[k]["img_data"] for k in host],
+                                         [labels[k] for k in host])
+            for k, m in zip(host, out):
+                metrics[k] = m
+        elapsed = (time.perf_counter() - tic) / len(chunk)
+        for acc_sum, pix_sum, inter, union in metrics:
+            add(float(acc_sum) / (float(pix_sum) + 1e-10), int(pix_sum),
+                inter.astype(np.float64), union.astype(np.float64), elapsed)
+
+    def run_engine(engine):
+        if engine.device.type == "cuda" and engine.device.index is not None:
+            torch.cuda.set_device(engine.device)  # this thread's current card
+        batched = isinstance(engine, BatchedInferenceEngine)
+        while True:
+            work = next_chunk(CHUNK if batched else 1)
+            if not work:
+                return
+            if batched:
+                run_batched(engine, work)
             else:
-                # Visualization needs the prediction maps on the host.
-                preds = engine.batched_predict([it["img_data"] for it in chunk],
-                                               [lab.shape for lab in labels])
-                elapsed = (time.perf_counter() - tic) / len(chunk)
-                for item, pred in zip(chunk, preds):
-                    time_meter.update(elapsed)
-                    score_one(item, pred)
-    else:
-        for item in loader:
-            seg_label = np.asarray(item["seg_label"][0])
-            tic = time.perf_counter()
-            pred = engine.predict(item["img_data"], seg_label.shape)
-            time_meter.update(time.perf_counter() - tic)
-            score_one(item, pred)
+                item = work[0]
+                seg_label = np.asarray(item["seg_label"][0])
+                tic = time.perf_counter()
+                pred = engine.predict(item["img_data"], seg_label.shape)
+                score_one(item, pred, time.perf_counter() - tic)
+
+    errors = []
+
+    def guarded(engine):
+        try:
+            run_engine(engine)
+        except Exception as e:  # re-raised by the caller below
+            errors.append(e)
+
+    threads = [threading.Thread(target=guarded, args=(e,), name=f"eval-engine-{i}")
+               for i, e in enumerate(engines)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
     iou, miou = miou_from_meters(inter_sum, union_sum)
     names = load_class_names()
@@ -180,9 +239,27 @@ def evaluate(engines, loader, cfg, logger, visualize=False, vis_dir=None):
     return miou, acc_meter.average(), iou, raw
 
 
+def make_loader(cfg, engines, *, exact=False, device_pyramid=False, start_idx=-1, end_idx=-1):
+    """The val set's loader as the engines take it."""
+    dataset = ValDataset(
+        cfg.DATASET.root_dataset, cfg.DATASET.list_val, cfg.DATASET,
+        device_preprocess=not exact,
+        # Bucket by resize: levels land on the lattice, so the engine
+        # pads only what packing folds into a larger bucket.
+        bucket_step=None if exact else cfg.TPU.eval_bucket_step,
+        device_pyramid_canvas=engines[0].ori_canvas if device_pyramid else None,
+        start_idx=start_idx, end_idx=end_idx,
+    )
+    batched = isinstance(engines[0], BatchedInferenceEngine)
+    return EvalLoader(dataset, num_workers=5, prefetch=CHUNK * len(engines) if batched else 16)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="semseg_tpu_torch evaluation")
     parser.add_argument("--cfg", default="config/ade20k-resnet50dilated-ppm_deepsup.yaml")
+    parser.add_argument("--devices", type=int, default=1,
+                        help="eval devices: one engine per card (the first N visible; "
+                             "with --device cpu, N engines on the CPU)")
     parser.add_argument("--gpu", default=None, help="reference CLI parity")
     parser.add_argument("--exact", action="store_true",
                         help="per-image reference computation (no bucketing)")
@@ -239,21 +316,14 @@ def main(argv=None):
         logger.warning("--device-pyramid ignored (requires --batch > 1, no --exact, "
                        "and VAL.visualize False)")
     engines = build_engines(
-        cfg, 1, exact=args.exact, batch=args.batch,
+        cfg, args.devices, exact=args.exact, batch=args.batch,
         fetch_dtype=None if args.exact else args.fetch_dtype,
         pack_buckets=args.pack_buckets, device_pyramid=device_pyramid, device=args.device,
     )
-    dataset = ValDataset(
-        cfg.DATASET.root_dataset, cfg.DATASET.list_val, cfg.DATASET,
-        device_preprocess=not args.exact,
-        # Bucket by resize: levels land on the lattice, so the engine
-        # pads only what packing folds into a larger bucket.
-        bucket_step=None if args.exact else cfg.TPU.eval_bucket_step,
-        device_pyramid_canvas=engines[0].ori_canvas if device_pyramid else None,
-        start_idx=args.start_idx, end_idx=args.end_idx,
-    )
-    batched = isinstance(engines[0], BatchedInferenceEngine)
-    loader = EvalLoader(dataset, num_workers=5, prefetch=CHUNK if batched else 16)
+    if len(engines) > 1 or args.devices > 1:
+        logger.info(f"{len(engines)} engine(s) on {', '.join(str(e.device) for e in engines)}")
+    loader = make_loader(cfg, engines, exact=args.exact, device_pyramid=device_pyramid,
+                         start_idx=args.start_idx, end_idx=args.end_idx)
     result = evaluate(
         engines, loader, cfg, logger, visualize=cfg.VAL.visualize,
         vis_dir=os.path.join(cfg.DIR, "result"),

@@ -1,7 +1,7 @@
-"""Training CLI (``semseg_tpu/cli/train.py``), one card.
+"""Training CLI (``semseg_tpu/cli/train.py``), on one card or several.
 
     python -m semseg_tpu_torch.cli.train --cfg config/ade20k-resnet50dilated-ppm_deepsup.yaml \\
-        [--device cuda] [TRAIN.num_epoch 20 ...]
+        [--device cuda] [--devices N | --gpus 0-3 | --multihost] [TRAIN.num_epoch 20 ...]
 
 Per epoch: ``TRAIN.epoch_iters`` SGD steps over aspect-binned batches from
 ``TrainLoader`` (``TRAIN.workers`` threads), uploaded ahead of the step by
@@ -11,25 +11,39 @@ Per epoch: ``TRAIN.epoch_iters`` SGD steps over aspect-binned batches from
 ``TRAIN.start_epoch N`` resumes from epoch N's train state: step count,
 learning rate, momentum buffers and batch-norm statistics continue.
 
-Each epoch's data stream is seeded from ``TRAIN.seed``, the epoch and the
-worker, and each step's dropout from ``TRAIN.seed`` and the step, so a run
-resumed at epoch N repeats the uninterrupted run's epochs after N (with one
-worker; more workers interleave their streams in arrival order). The JAX
-CLI keeps one stream across epochs and restarts it on resume.
+Each epoch's data stream is seeded from ``TRAIN.seed``, the epoch, the rank
+and the worker, and each step's dropout from ``TRAIN.seed`` and the step,
+so a run resumed at epoch N repeats the uninterrupted run's epochs after N
+(with one worker; more workers interleave their streams in arrival order).
+The JAX CLI keeps one stream across epochs and restarts it on resume.
 
-Runs on the card unless ``--device cpu``. More than one card
-(``--devices``/``--gpus``, ``--multihost``) is ROADMAP item 11. ``--profile
-DIR`` writes a ``torch.profiler`` trace of the first steps.
+Data parallelism, one process (rank) per card: ``--devices N`` (or
+``--gpus 0-3``, whose length counts) starts N ranks on this host, on the
+first N visible cards (fewer if fewer are visible, as the JAX package's
+``make_mesh`` takes them), NCCL between them; with ``--device cpu`` N gloo
+ranks on the CPU. ``--multihost`` joins a run whose ranks are started
+elsewhere, one per card, named by ``SEMSEG_COORDINATOR`` /
+``SEMSEG_NUM_PROCESSES`` / ``SEMSEG_PROCESS_ID`` or by torchrun's
+variables (``parallel.distributed.initialize``). The global batch is
+``TRAIN.batch_size_per_gpu`` times the ranks, and each step is the JAX
+package's data-parallel step over it (``parallel.train_step``). Only rank 0
+logs and writes checkpoints; every rank reads one on resume.
+
+Runs on the card unless ``--device cpu``. ``--profile DIR`` writes a
+``torch.profiler`` trace of rank 0's first steps.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from semseg_tpu_torch.checkpoint import (
     AsyncSaver,
@@ -45,18 +59,22 @@ from semseg_tpu_torch.parallel import (
     create_train_state,
     current_lrs,
     device_prefetch,
+    distributed,
     dropout_generator,
     process_seed,
     stack_microbatches,
     train_step,
 )
-from semseg_tpu_torch.utils import AverageMeter, setup_logger
+from semseg_tpu_torch.utils import AverageMeter, parse_devices, setup_logger
 
 PROFILE_STEPS = 5
 
 
 def epoch_batches(cfg, epoch, device):
-    """Epoch ``epoch``'s batches on ``device`` (an iterator) and its loader."""
+    """Epoch ``epoch``'s batches on ``device``: a generator that stops its
+    loader and prefetch thread when closed. A data-parallel rank's batches
+    are its slice of the global batch, padded on the prefetch thread to the
+    ranks' common canvas."""
     accum = cfg.TPU.grad_accum
     loader = TrainLoader(
         lambda worker: TrainDataset(
@@ -68,10 +86,22 @@ def epoch_batches(cfg, epoch, device):
         ),
         num_workers=cfg.TRAIN.workers, prefetch=cfg.TPU.prefetch * 4,
     )
+    exchange = None
+    if distributed.process_count() > 1:
+        exchange = distributed.CanvasExchange(epoch)
     host = iter(loader)
     if accum > 1:
         host = (stack_microbatches(b, accum) for b in host)
-    return device_prefetch(host, device, depth=cfg.TPU.prefetch), loader
+    put = None if exchange is None else functools.partial(
+        distributed._sync_batch_canvas, exchange=exchange, microbatched=accum > 1)
+    batches = device_prefetch(host, device, depth=cfg.TPU.prefetch, put=put)
+    try:
+        yield from batches
+    finally:
+        batches.close()
+        if exchange is not None:
+            exchange.close()
+        loader.close()
 
 
 def train_one_epoch(state, batches, cfg, epoch, history, logger, profile_dir=""):
@@ -136,50 +166,60 @@ def train_one_epoch(state, batches, cfg, epoch, history, logger, profile_dir="")
                     f"Loss: {ave_loss.average():.6f}")
 
 
-def _check_one_card(args):
-    from semseg_tpu_torch.utils import parse_devices
-
-    cards = args.devices or (len(parse_devices(args.gpus)) if args.gpus else 1)
-    if cards > 1 or args.multihost:
-        raise NotImplementedError(
-            "the port trains on one card; multi-GPU training (DDP, synced batch "
-            "norm, --multihost) is ROADMAP item 11"
-        )
+def rank_count(device, requested: int) -> int:
+    """Ranks for ``--devices requested``: on cards the first
+    ``min(requested, visible)``, on the CPU as many as requested."""
+    requested = max(requested, 1)
+    if torch.device(device).type != "cuda":
+        return requested
+    return distributed.visible_cards(requested)
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description="semseg_tpu_torch training")
-    parser.add_argument("--cfg", default="config/ade20k-resnet50dilated-ppm_deepsup.yaml")
-    parser.add_argument("--devices", type=int, default=0,
-                        help="cards to train on (0 = one; more is ROADMAP item 11)")
-    parser.add_argument("--gpus", default=None, help="reference CLI parity: one card only")
-    parser.add_argument("--profile", default="",
-                        help=f"write a torch.profiler trace of the first {PROFILE_STEPS} "
-                             "steps into this directory")
-    parser.add_argument("--multihost", action="store_true", help="not ported (ROADMAP item 11)")
-    parser.add_argument("--device", default="cuda")
-    parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
-    args = parser.parse_args(argv)
-    _check_one_card(args)
+def _rank_main(rank, args, world, port):
+    """Rank ``rank`` of ``--devices world`` (``torch.multiprocessing.spawn``)."""
+    if torch.device(args.device).type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    run(args, dict(coordinator_address=f"127.0.0.1:{port}", num_processes=world,
+                   process_id=rank))
 
+
+def run(args, rendezvous=None):
+    """Train in this process: alone, or with ``rendezvous`` (arguments of
+    ``distributed.initialize``; ``{}`` reads the environment) as one rank.
+    A process group begun here ends here. Returns ``(state, history)``."""
+    if rendezvous is None:
+        return _train(args, torch.device(args.device), None)
+    joined = not dist.is_initialized()
+    device = distributed.initialize(**rendezvous, device=args.device)
+    joined = joined and dist.is_initialized()
+    try:
+        return _train(args, device, dist.group.WORLD if dist.is_initialized() else None)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _train(args, device, group):
     cfg = _default_cfg.clone()
     cfg.merge_from_file(args.cfg)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    logger = setup_logger()
+    rank, world = distributed.process_index(), distributed.process_count()
+    logger = setup_logger(distributed_rank=rank)
     logger.info(f"Loaded configuration file {args.cfg}")
     os.makedirs(cfg.DIR, exist_ok=True)
-    with open(os.path.join(cfg.DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if distributed.is_primary():
+        with open(os.path.join(cfg.DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
     np.random.seed(cfg.TRAIN.seed)
     torch.manual_seed(cfg.TRAIN.seed)
     if cfg.TPU.train_fast_decode:
         raise NotImplementedError("TPU.train_fast_decode needs the native JPEG decoder "
                                   "(ROADMAP item 14)")
-    device = torch.device(args.device)
-    logger.info(f"Device: {device}; batch {cfg.TRAIN.batch_size_per_gpu}"
+    logger.info(f"Mesh: {world} device(s) / {world} process(es); global batch "
+                f"{cfg.TRAIN.batch_size_per_gpu * world}"
                 + (f" x {cfg.TPU.grad_accum} grad-accum microbatches"
-                   if cfg.TPU.grad_accum > 1 else ""))
+                   if cfg.TPU.grad_accum > 1 else "") + f"; rank 0 on {device}")
 
     model = ModelBuilder.build_model(cfg, device=device, seed=cfg.TRAIN.seed)
     if cfg.MODEL.pretrained_encoder and not cfg.MODEL.weights_encoder \
@@ -188,7 +228,7 @@ def main(argv=None):
         if path:
             load_pretrained_encoder(model.encoder, path)
             logger.info(f"Encoder initialised from {path}")
-    state = create_train_state(cfg, model)
+    state = create_train_state(cfg, model, group)
     # A resumed run's history holds only the epochs it runs, as in the JAX CLI.
     history = {"train": {"epoch": [], "loss": [], "acc": []}}
     if cfg.TRAIN.start_epoch > 0:
@@ -199,13 +239,12 @@ def main(argv=None):
     saver = AsyncSaver() if cfg.TPU.async_checkpoint else None
     try:
         for epoch in range(cfg.TRAIN.start_epoch, cfg.TRAIN.num_epoch):
-            batches, loader = epoch_batches(cfg, epoch, device)
+            batches = epoch_batches(cfg, epoch, device)
+            profile = args.profile if epoch == cfg.TRAIN.start_epoch and rank == 0 else ""
             try:
-                train_one_epoch(state, batches, cfg, epoch, history, logger,
-                                args.profile if epoch == cfg.TRAIN.start_epoch else "")
+                train_one_epoch(state, batches, cfg, epoch, history, logger, profile)
             finally:
                 batches.close()
-                loader.close()
             if saver is not None:
                 saver.save(cfg.DIR, epoch + 1, state, history)
                 logger.info(f"Saving checkpoint epoch_{epoch + 1} (async)")
@@ -214,8 +253,6 @@ def main(argv=None):
                 logger.info(f"Saved checkpoint epoch_{epoch + 1}")
     finally:
         if saver is not None:
-            import sys
-
             unwinding = sys.exc_info()[0] is not None
             try:
                 saver.close()
@@ -223,8 +260,53 @@ def main(argv=None):
                 if not unwinding:
                     raise
                 logger.exception("checkpoint writer failed during shutdown")
+            if not unwinding:
+                distributed.barrier()  # the last file is written before any rank returns
     logger.info("Training Done!")
     return state, history
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="semseg_tpu_torch training")
+    parser.add_argument("--cfg", default="config/ade20k-resnet50dilated-ppm_deepsup.yaml")
+    parser.add_argument("--devices", type=int, default=0,
+                        help="cards to train on, one process each (0 = one); more than "
+                             "are visible: every visible card; with --device cpu, gloo "
+                             "processes on the CPU")
+    parser.add_argument("--gpus", default=None,
+                        help="reference CLI parity: the device list's length sizes "
+                             "--devices (an explicit --devices wins)")
+    parser.add_argument("--profile", default="",
+                        help=f"write a torch.profiler trace of the first {PROFILE_STEPS} "
+                             "steps into this directory")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a run of one process per card started elsewhere: "
+                             "SEMSEG_COORDINATOR (host:port of rank 0), "
+                             "SEMSEG_NUM_PROCESSES, SEMSEG_PROCESS_ID, or torchrun's "
+                             "MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE/LOCAL_RANK")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
+    args = parser.parse_args(argv)
+    if args.gpus and not args.devices:
+        args.devices = len(parse_devices(args.gpus))
+    return args
+
+
+def main(argv=None):
+    """Trains as ``argv`` says; returns ``(state, history)`` when this
+    process trained, None when it started ranks that did."""
+    args = parse_args(argv)
+    if args.multihost:
+        return run(args, {})
+    ranks = rank_count(args.device, args.devices)
+    if ranks < args.devices:
+        setup_logger().info(f"{ranks} card(s) visible: training on {ranks} of the "
+                            f"{args.devices} asked for")
+    if ranks == 1:
+        return run(args)
+    torch.multiprocessing.spawn(_rank_main, args=(args, ranks, distributed.free_port()),
+                                nprocs=ranks)
+    return None
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 
@@ -30,18 +31,27 @@ class Dropout2d(nn.Module):
     trainer owns and seeds per step (``parallel.train_step``), and then
     moved to the input's device, so a run is reproducible and the card
     draws the same masks as the CPU. Without a generator the global CPU
-    generator is used.
+    generator is used. With ``process_group`` (data parallelism, every rank
+    at batch N) rank r draws the global batch's (N * ranks, C) mask and keeps
+    its rows [r*N, (r+1)*N): the ranks' masks are those of one process at
+    the global batch, not copies of one another.
     """
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        self.process_group = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape[0], x.shape[1], generator=self.generator) >= self.p
+        n, c = x.shape[:2]
+        rank, world = 0, 1
+        if self.process_group is not None:
+            rank = dist.get_rank(self.process_group)
+            world = dist.get_world_size(self.process_group)
+        keep = torch.rand(n * world, c, generator=self.generator)[rank * n:(rank + 1) * n] >= self.p
         if x.is_cuda:
             # A copy from pinned memory does not make the host wait for the
             # card's queue to drain, as one from pageable memory does.
@@ -62,11 +72,13 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """The reference SyncBN on one device, f32 math (``ops.norm``).
+    """The reference SyncBN, f32 math (``ops.norm``).
 
     Eval mode normalises with the running statistics; training mode with
     the batch's (``batch_norm_train``) and advances the running statistics
-    by the reference's bias-corrected EMA (momentum 0.001).
+    by the reference's bias-corrected EMA (momentum 0.001). With
+    ``process_group`` (data parallelism) the batch is every rank's: the
+    statistics are all-reduced, and every rank keeps the same running ones.
 
     Buffers: ``nn.BatchNorm2d``'s, plus ``_running_iter`` (shape (1,),
     default 1), the EMA's bias-correction accumulator under the reference's
@@ -78,6 +90,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.001):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.register_buffer("_running_iter", torch.ones(1))
+        self.process_group = None
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         key = prefix + "_running_iter"
@@ -94,6 +107,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         y, mean, var, it = batch_norm_train(
             x, self.weight, self.bias, self.running_mean, self.running_var,
             self._running_iter, eps=self.eps, momentum=self.momentum,
+            group=self.process_group,
         )
         self.running_mean.copy_(mean)
         self.running_var.copy_(var)

@@ -17,6 +17,17 @@
 mode but leaves every batch norm and dropout in eval mode: the running
 statistics stay frozen and the deep-supervision branch still runs, the JAX
 package's ``train`` / ``norm_train`` split.
+
+``set_process_group(model, group)`` makes the training forward that of
+one rank of a data-parallel run over ``group``, each rank with its slice of
+the global batch: batch norm takes the global batch's statistics, dropout
+the global batch's masks, and the loss and accuracy are the global batch's
+(JAX's mean over the global batch under GSPMD, not a mean of per-rank
+means, which differ whenever the ranks hold different numbers of valid
+pixels). One all-reduce brings every rank the loss's sums; the returned
+loss has the global value and the gradient of this rank's share
+``sum_rank / max(valid_global, 1)``, so the ranks' gradients sum to the
+global loss's.
 """
 
 from __future__ import annotations
@@ -26,7 +37,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from semseg_tpu_torch.ops.losses import pixel_accuracy, softmax_cross_entropy_with_ignore
+from semseg_tpu_torch.ops.losses import (
+    masked_mean,
+    pixel_accuracy_sums,
+    softmax_cross_entropy_sums,
+)
+from semseg_tpu_torch.ops.norm import all_reduce_sum
 from .layers import BatchNorm2d, Dropout2d
 
 
@@ -53,6 +69,7 @@ class SegmentationModel(nn.Module):
         self.deep_sup_scale = deep_sup_scale
         self.fix_bn = fix_bn
         self.ignore_index = ignore_index
+        self.process_group = None
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -74,10 +91,26 @@ class SegmentationModel(nn.Module):
 
         out = self.decoder(feats)
         logits, logits_deepsup = out if isinstance(out, tuple) else (out, None)
-        loss = softmax_cross_entropy_with_ignore(logits, seg_label,
-                                                 ignore_index=self.ignore_index)
+        terms = [(logits, 1.0)]
         if logits_deepsup is not None and self.deep_sup_scale is not None:
-            loss = loss + self.deep_sup_scale * softmax_cross_entropy_with_ignore(
-                logits_deepsup, seg_label, ignore_index=self.ignore_index)
-        acc = pixel_accuracy(logits, seg_label, ignore_index=self.ignore_index)
-        return loss, acc
+            terms.append((logits_deepsup, self.deep_sup_scale))
+        sums = [softmax_cross_entropy_sums(t, seg_label, ignore_index=self.ignore_index)
+                for t, _ in terms]
+        correct, valid = pixel_accuracy_sums(logits, seg_label, ignore_index=self.ignore_index)
+        flat = torch.stack([v.detach() for pair in sums for v in pair] + [correct, valid])
+        totals = all_reduce_sum(flat, self.process_group)
+        share = glob = 0.0
+        for k, (_, scale) in enumerate(terms):
+            share = share + scale * masked_mean(sums[k][0], totals[2 * k + 1])
+            glob = glob + scale * masked_mean(totals[2 * k], totals[2 * k + 1])
+        # The global value, with the gradient of this rank's share.
+        loss = glob + (share - share.detach())
+        return loss, totals[-2] / (totals[-1] + 1e-10)
+
+
+def set_process_group(model: nn.Module, group) -> None:
+    """Make ``model``'s training forward a data-parallel rank's over the
+    ranks of ``group`` (module docstring); ``None`` makes it one process's."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm2d, Dropout2d, SegmentationModel)):
+            m.process_group = group

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -62,6 +63,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = 0
 VALID_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+# Engines on several threads (``cli.eval --devices``) launch at once.
+_COUNT_LOCK = threading.Lock()
 
 
 def pyramid_pool_plain(x: torch.Tensor, scales: Sequence[int] = SCALES,
@@ -221,7 +224,8 @@ def _dense_cuda(x):
     global LAUNCHES
     _check(x)
     outs = launch(_lib(), x)
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return outs
 
 
@@ -237,7 +241,8 @@ def _valid_cuda(x, valid_hw):
     global VALID_LAUNCHES
     _check(x, valid_hw)
     outs = launch(_lib(), x, valid_hw)
-    VALID_LAUNCHES += 1
+    with _COUNT_LOCK:
+        VALID_LAUNCHES += 1
     return outs
 
 
@@ -252,7 +257,8 @@ def _backward_cuda(grads, h, w):
     global BACKWARD_LAUNCHES
     _check_grads(grads)
     out = launch_backward(_lib(), grads, (h, w))
-    BACKWARD_LAUNCHES += 1
+    with _COUNT_LOCK:
+        BACKWARD_LAUNCHES += 1
     return out
 
 

@@ -1,6 +1,8 @@
-"""Training on one card (``semseg_tpu/parallel``): the train state and step,
-the device prefetcher and the per-worker data seed. Meshes, collectives
-and multi-card training are ROADMAP item 11."""
+"""Training (``semseg_tpu/parallel``): the train state and step, the device
+prefetcher, and the ranks of a data-parallel run (``distributed``: the
+handshake, per-rank seeds and batch slices, the cross-rank canvas). One
+process per card; the step over the ranks is the JAX package's over the
+global batch."""
 
 from .distributed import process_seed
 from .mesh import device_prefetch

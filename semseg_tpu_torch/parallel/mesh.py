@@ -1,8 +1,11 @@
 """Host → device batch prefetch (``semseg_tpu/parallel/mesh.py``
-``device_prefetch``), one card.
+``device_prefetch``) onto one rank's card.
 
 A thread packs each host batch into one pinned buffer and uploads it on a
-side stream, ``depth`` batches ahead of the step. The consumer's stream
+side stream, ``depth`` batches ahead of the step. ``put`` (JAX's hook)
+transforms each host batch on that thread first: a data-parallel rank pads
+it to the cross-rank canvas there (``distributed._sync_batch_canvas``,
+which launches no collective). The consumer's stream
 waits on each batch's event before using it, and the batch's memory is
 marked as used there, as the eval engines' uploader does
 (``upload.Upload``). Abandoning the generator (an error in the step loop,
@@ -21,10 +24,10 @@ import torch
 from semseg_tpu_torch.upload import Upload
 
 
-def device_prefetch(iterator, device, depth: int = 2):
-    """Yields the host batches (dicts of numpy arrays) of ``iterator`` as
-    dicts of tensors on ``device``; on the CPU they are views of one host
-    buffer."""
+def device_prefetch(iterator, device, depth: int = 2, put=None):
+    """Yields the host batches (dicts of numpy arrays) of ``iterator``,
+    passed through ``put`` (host batch → host batch) when given, as dicts of
+    tensors on ``device``; on the CPU they are views of one host buffer."""
     device = torch.device(device)
     stream = torch.cuda.Stream(device=device) if device.type == "cuda" else None
     q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -49,6 +52,8 @@ def device_prefetch(iterator, device, depth: int = 2):
     def worker():
         try:
             for batch in iterator:
+                if put is not None:
+                    batch = put(batch)
                 if stop.is_set() or not _put(upload(batch)):
                     return
         except Exception as e:

@@ -1,5 +1,6 @@
 """Training state, optimizer and the train step
-(``semseg_tpu/parallel/train_step.py``), plain PyTorch on one card.
+(``semseg_tpu/parallel/train_step.py``), on one card or as one rank of a
+data-parallel run.
 
 * One ``torch.optim.SGD`` with two parameter groups per top-level module:
   the encoder at ``lr_encoder``, the decoder at ``lr_decoder``; in each,
@@ -18,22 +19,41 @@
   the gradients summed and divided by K into one update. All K microbatches
   share the loader batch's canvas, as in the JAX package.
 
+Data parallelism (``create_train_state(..., group)``): one process per card,
+each with its slice of the global batch, all slices on one canvas
+(``distributed._sync_batch_canvas``). The step is the JAX package's over
+the global batch (``make_mesh(N)`` + ``shard_batch`` + ``train_step``):
+batch norm, dropout, the loss and the accuracy are the global batch's
+(``models.segmentation.set_process_group``), and
+``DistributedDataParallel`` all-reduces the gradients once per step, in
+the backward of the last microbatch (``no_sync`` before it). DDP averages
+over the ranks while each rank's loss carries its share of the global
+loss's gradient, so each rank's loss is scaled by the number of ranks
+before its backward. The batch-norm buffers are equal on every rank by
+construction, so DDP does not broadcast them.
+
 Dropout draws from a CPU generator seeded from ``TRAIN.seed`` and the step
 (``dropout_generator``), so a run repeats, and the card draws what the CPU
 draws. The step's forward, backward and update run inside the profiler
-ranges ``semseg::forward``, ``semseg::backward`` and ``semseg::optimizer``.
+ranges ``semseg::forward``, ``semseg::backward`` (with DDP's gradient
+all-reduce) and ``semseg::optimizer``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
 
 from semseg_tpu_torch.models.layers import Dropout2d
+from semseg_tpu_torch.models.segmentation import set_process_group
 from semseg_tpu_torch.ops.preproc import normalize_u8_masked
 
 
@@ -45,6 +65,8 @@ class TrainState:
     lr_pow: float
     step: int = 0
     dropouts: List[Dropout2d] = field(default_factory=list)
+    ddp: Optional[DistributedDataParallel] = None  # the model's data-parallel wrapper
+    world: int = 1  # ranks of the data-parallel group
 
 
 def decay_mask(module: torch.nn.Module) -> Dict[str, bool]:
@@ -81,11 +103,21 @@ def make_optimizer(cfg, model) -> torch.optim.SGD:
     return torch.optim.SGD(groups, lr=cfg.TRAIN.lr_encoder, momentum=cfg.TRAIN.beta1)
 
 
-def create_train_state(cfg, model) -> TrainState:
+def create_train_state(cfg, model, group=None) -> TrainState:
+    """The train state of ``model``; with ``group`` (a process group, each
+    rank on its own device) that of one data-parallel rank over it."""
+    ddp, world = None, 1
+    if group is not None:
+        set_process_group(model, group)
+        with warnings.catch_warnings():
+            # Newer PyTorch renames the switch; older has only this name.
+            warnings.filterwarnings("ignore", message="`broadcast_buffers` is deprecated")
+            ddp = DistributedDataParallel(model, process_group=group, broadcast_buffers=False)
+        world = dist.get_world_size(group)
     return TrainState(
         model=model, optimizer=make_optimizer(cfg, model),
         max_iters=cfg.TRAIN.num_epoch * cfg.TRAIN.epoch_iters, lr_pow=cfg.TRAIN.lr_pow,
-        dropouts=[m for m in model.modules() if isinstance(m, Dropout2d)],
+        dropouts=[m for m in model.modules() if isinstance(m, Dropout2d)], ddp=ddp, world=world,
     )
 
 
@@ -110,9 +142,11 @@ def train_step(state: TrainState, batch: dict, generator: Optional[torch.Generat
     """One SGD step on ``batch`` (tensors on the model's device:
     ``img_data`` (N, H, W, 3) float32, or uint8 with ``img_valid_hw`` (N, 2)
     int32, and ``seg_label`` (N, h, w) int32; with ``grad_accum`` > 1 each
-    with a leading microbatch axis). Updates ``state`` in place and returns
-    ``{'loss', 'acc'}`` as device scalars (not fetched)."""
-    model, opt = state.model, state.optimizer
+    with a leading microbatch axis; a data-parallel rank's slice of the
+    global batch). Updates ``state`` in place and returns ``{'loss', 'acc'}``
+    (the global batch's) as device scalars (not fetched)."""
+    opt = state.optimizer
+    model = state.ddp if state.ddp is not None else state.model
     for m in state.dropouts:
         m.generator = generator
     for group in opt.param_groups:
@@ -127,11 +161,13 @@ def train_step(state: TrainState, batch: dict, generator: Optional[torch.Generat
                              f"(stack_microbatches); got leading dim {lead}")
         micro = [{k: v[i] for k, v in batch.items()} for i in range(grad_accum)]
     loss_sum = acc_sum = 0.0
-    for mb in micro:
-        with record_function("semseg::forward"):
-            loss, acc = model(_images(mb), seg_label=mb["seg_label"])
-        with record_function("semseg::backward"):
-            loss.backward()
+    for i, mb in enumerate(micro):
+        no_sync = state.ddp is not None and i + 1 < len(micro)
+        with state.ddp.no_sync() if no_sync else contextlib.nullcontext():
+            with record_function("semseg::forward"):
+                loss, acc = model(_images(mb), seg_label=mb["seg_label"])
+            with record_function("semseg::backward"):
+                (loss * state.world).backward()
         loss_sum = loss_sum + loss.detach()
         acc_sum = acc_sum + acc.detach()
     with record_function("semseg::optimizer"):

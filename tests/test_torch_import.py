@@ -75,7 +75,27 @@ def _probe(env):
     assert loaded.strip() == "[]"
     # package, subpackages and the ported modules (config, data and utils
     # copies included)
-    assert int(count) >= 29
+    assert int(count) >= 31
+
+
+def test_walk_reaches_the_multi_card_entry_points():
+    """The scan and the probe reach the multi-card modules: the spawned
+    ranks' entry point, the eval fan-out and the shard tool; the smoke's
+    data-parallel rank is a top-level function (``spawn`` pickles it by
+    name), and its imports are among those scanned above."""
+    import importlib
+    import pkgutil
+
+    import semseg_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(semseg_tpu_torch.__path__,
+                                                    "semseg_tpu_torch.")}
+    assert {"semseg_tpu_torch.parallel.distributed", "semseg_tpu_torch.cli.eval_multipro",
+            "semseg_tpu_torch.tools.combine_eval_shards"} <= names
+    assert callable(importlib.import_module("semseg_tpu_torch.cli.train")._rank_main)
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    top = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"_dp_rank", "data_parallel_phase"} <= top
 
 
 def test_port_imports_without_jax():

@@ -12,7 +12,8 @@
   ``cli.eval`` reads the pair (``VAL.checkpoint epoch_2.pth``); a
   non-finite loss raises; ``--profile`` writes a trace of the first steps;
   ``MODEL.pretrained_encoder`` reads only the local cache; more than one
-  card raises.
+  card on a machine with none raises a clear error (two gloo ranks on the
+  CPU: ``test_torch_dist_cli.py``).
 """
 
 import json
@@ -229,8 +230,12 @@ def test_pretrained_encoder_reads_the_local_cache_only(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["--gpus", "0-3"], ["--multihost"]])
-def test_more_than_one_card_raises(flags):
+def test_more_than_one_card_raises(flags, monkeypatch):
+    """Cards asked for where none is visible: a clear error before any
+    process starts (``--multihost`` without a coordinator stays one process,
+    as the JAX CLI does, and then needs its card)."""
     from semseg_tpu_torch.cli import train
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA card is visible"):
         train.main(["--cfg", CFG, *flags])
