@@ -58,7 +58,8 @@ PyTorch built for CUDA. In order:
    on 8 labelled JPEGs (epoch 1, then a resume into epoch 2, then
    ``cli.eval`` of the ``epoch_2.pth`` pair), with the pool's forward and
    backward launches equal to the steps run; the loss falling over 5 steps
-   on one repeated batch; one float32 step (TF32 off) on the card against
+   on one repeated batch (deterministic algorithms, so that the same five
+   losses come every run); one float32 step (TF32 off) on the card against
    the CPU from the same weights and batch (loss, the gradients of layer4's
    last conv, a PPM branch conv and ``conv_last``, the BN statistics: a
    missing pool gradient moves layer4's by O(1)); and steady state at
@@ -101,10 +102,30 @@ PyTorch built for CUDA. In order:
    default batched path's mIoU within 1e-4 (PARITY.md's bucketed bar;
    the two engines take chunks of 4 images), with the launches counted.
 
+11. the slice's modules (after phase 10): (a) the native host library
+   (``semseg_tpu_torch.native``) built from the checkout with g++, its
+   command and whether libjpeg was found printed; on phase 8's training
+   JPEGs and the val set ``decode_jpeg_verified`` and the native 5-level
+   pyramid bit-equal to PIL, ``TrainDataset`` batches native against
+   ``SEMSEG_NO_NATIVE=1`` (uint8 bit-equal, float32 within 1e-6), and host
+   times on one thread (pyramid per image PIL / native, a batch of 2 PIL /
+   native / native with ``fast_decode``); (b) ``TPU.remat``: two float32
+   steps (TF32 off) of the flagship at batch 2 with remat on and off from
+   the same weights and batches under deterministic algorithms: bit-equal
+   losses, accuracies, parameters, gradients and BN buffers (``iter``
+   too), then bench.py's batch-8 448x608 step both
+   ways (ms/step, peak memory: remat must lower it); (c) ``cli.serve
+   --devices 2`` on cuda:0 over phase 9's bundle and the live engine, phase
+   9's requests (the live engine the first half) at 1 and 4 clients with
+   its rules, every backend taking batches; (d) ``cli.eval --profile`` over two val images: the trace names
+   the pad-aware pool's kernels.
+
 With more than one visible card, a last check puts a rank or an engine on
 every card: the ranks (NCCL) against one process as in 10 (a),
-``cli.train --devices N`` for one epoch, and ``cli.eval --exact --devices
-N`` against one engine. Run with no arguments on one card, it needs one.
+``cli.train --devices N`` for one epoch, ``cli.eval --exact --devices
+N`` against one engine, and ``cli.serve --devices N`` (a backend per card,
+the bundle exported on card 0) as in 11 (c). Run with no arguments on one
+card, it needs one.
 
 It ends with a JSON line of per-kernel results, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}`` as the last
@@ -114,6 +135,7 @@ is printed. It never falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -814,12 +836,15 @@ def steady_state(ckpt, val_dir, odgt, torch, card):
               f"task to fill a bucket's last chunk)", flush=True)
     # The batched engines take host pyramids the loader built beforehand;
     # the device-pyramid engine builds its levels inside its time.
+    from semseg_tpu_torch.data.dataset import _native_ok
+
     builder = PyramidBuilder(cfg.DATASET, bucket_step=cfg.TPU.eval_bucket_step)
     tic = time.perf_counter()
     for ori in oris:
         builder.multi_scale_pyramid(ori, raw=True)
     host_s = (time.perf_counter() - tic) / len(oris)
-    print(f"[steady] host PIL pyramid (5 uint8 levels on the step-8 lattice), one thread of "
+    print(f"[steady] host {'native' if _native_ok() else 'PIL'} pyramid (5 uint8 levels on "
+          f"the step-8 lattice; both paths: phase 11), one thread of "
           f"this machine's CPU: {host_s:.4f} s/image (outside the batched engines' times "
           f"above; the eval CLI builds it in 5 loader threads)", flush=True)
     for name, key in (("batched", "batched"), ("batched-8", "batched, batch 8"),
@@ -1180,7 +1205,8 @@ def train_phase(work, torch, ppm_pool, card):
             ("cli.train resumed into epoch 2", ["TRAIN.num_epoch", "2", "TRAIN.start_epoch", "1"],
              2)):
         (state, history), seconds, dense, valid = _run_path(
-            name, lambda: train_cli.main(["--cfg", CFG, *opts, *extra]), ppm_pool, torch,
+            name, lambda: train_cli.main(["--cfg", CFG, "--devices", "1", *opts, *extra]),
+            ppm_pool, torch,
             backward=TRAIN_ITERS)
         losses = history["train"]["loss"]
         if (dense, valid) != (TRAIN_ITERS, 0) or len(losses) != want_history:
@@ -1219,8 +1245,29 @@ def _train_model(torch, cfg, device, seed=0, group=None):
     return create_train_state(cfg, model.train(), group)
 
 
+@contextlib.contextmanager
+def _deterministic(torch):
+    """cuDNN's deterministic algorithms (no autotuning) and PyTorch's
+    deterministic kernels while entered (the bilinear resize's backward goes
+    through ``index_put`` instead of atomic adds): repeated training steps
+    on the card are then bit-equal. Outside, cuDNN's weight gradients and
+    the resize's backward add in a varying order from run to run."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
 def loss_falls(torch, root, odgt, card):
-    """Five steps on one repeated batch of the written set: the loss falls."""
+    """Five steps on one repeated batch of the written set: the loss falls.
+    Under deterministic algorithms, so that the check reads the same five
+    losses on every run instead of one draw from the card's rounding."""
     from semseg_tpu_torch.data import TrainDataset
     from semseg_tpu_torch.parallel import dropout_generator, train_step
 
@@ -1229,8 +1276,11 @@ def loss_falls(torch, root, odgt, card):
     host = TrainDataset(root, odgt, cfg.DATASET, batch_per_gpu=2, seed=1,
                         bucket_step=cfg.TPU.bucket_step, raw_transport=True).next_batch()
     batch = {k: torch.from_numpy(v).to(CARD) for k, v in host.items()}
-    losses = [float(train_step(state, batch, dropout_generator(0, i))["loss"]) for i in range(5)]
-    print(f"[train] one repeated batch {tuple(host['img_data'].shape)}, 5 steps: losses "
+    with _deterministic(torch):
+        losses = [float(train_step(state, batch, dropout_generator(0, i))["loss"])
+                  for i in range(5)]
+    print(f"[train] one repeated batch {tuple(host['img_data'].shape)}, 5 steps under "
+          f"deterministic algorithms: losses "
           f"{[round(x, 4) for x in losses]} (card: {card})", flush=True)
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"the loss did not fall on a repeated batch: {losses}")
@@ -1477,7 +1527,8 @@ class _SlotRecord:
         return slots
 
 
-def _serve_traffic(name, server, bodies, lone, agree, card, record=None):
+def _serve_traffic(name, server, bodies, lone, agree, card, record=None,
+                   concurrency=SERVE_CONCURRENCY):
     """Request rounds at each concurrency against a bound server, after a
     warm round; every round sends each of ``bodies`` twice. ``lone`` holds
     the backend's own label map of each decoded body, predicted alone.
@@ -1489,7 +1540,7 @@ def _serve_traffic(name, server, bodies, lone, agree, card, record=None):
     requests, whose extra zero pad the convolutions carry in). With
     ``record`` (a ``_SlotRecord``) a map's references are its request's
     maps predicted alone at the slots the round served it in. Returns the
-    batches the backend ran."""
+    batches the backends ran, and with several backends each one's."""
     import io
     import urllib.request
 
@@ -1507,9 +1558,9 @@ def _serve_traffic(name, server, bodies, lone, agree, card, record=None):
     if health["status"] != "ok":
         raise RuntimeError(f"{name}: /healthz {health}")
     sent = bodies * 2
-    _post_all(url + "/segment?format=npy", sent, max(SERVE_CONCURRENCY))
-    batches = 0
-    for conc in SERVE_CONCURRENCY:
+    _post_all(url + "/segment?format=npy", sent, max(concurrency))
+    batches, per_backend = 0, None
+    for conc in concurrency:
         server.batcher.reset_stats()
         if record is not None:
             record.served()
@@ -1530,9 +1581,14 @@ def _serve_traffic(name, server, bodies, lone, agree, card, record=None):
         at_slot = "" if slots is None else (
             f", at the slots its request was served in {min(shares):.6f} (requests per slot "
             f"{[sum(j in js for js in slots) for j in range(len(record.at))]})")
+        if "backend_batches" in stats:
+            per_backend = [a + b for a, b in zip(per_backend or [0] * len(
+                stats["backend_batches"]), stats["backend_batches"])]
         print(f"[serve] {name}, {conc} client(s), {len(sent)} requests: "
               f"{len(sent) / wall:.2f} req/s, mean_batch_fill {stats['mean_batch_fill']:.2f} "
-              f"({stats['batches']} batches), /stats latency p50 {stats['latency_ms_p50']:.1f} / "
+              f"({stats['batches']} batches"
+              f"{', per backend ' + str(stats.get('backend_batches')) if per_backend else ''})"
+              f", /stats latency p50 {stats['latency_ms_p50']:.1f} / "
               f"p95 {stats['latency_ms_p95']:.1f} ms, client p50 {_pct(lats, 0.5):.1f} / p95 "
               f"{_pct(lats, 0.95):.1f} / max {max(lats):.1f} ms, non-200 {len(bad)}; each map "
               f"against its request predicted alone: agreement min {min(alone):.6f}{at_slot} "
@@ -1545,7 +1601,39 @@ def _serve_traffic(name, server, bodies, lone, agree, card, record=None):
                                f"backend's own: agreement {shares}, with the closest other "
                                f"request's {others}")
         batches += stats["batches"]
-    return batches
+    return batches, per_backend
+
+
+def _serve_requests():
+    """Phase 9's JPEG request bodies, of shapes sampled from the val
+    manifest, and their PIL decodes."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from semseg_tpu_torch.data.dataset import sample_odgt_shapes
+
+    shapes = sample_odgt_shapes(os.path.join(HERE, "data", "validation.odgt"), SERVE_REQUESTS,
+                                seed=0)
+    rng = np.random.RandomState(12)
+    bodies, decoded = [], []
+    for h, w in shapes:
+        # Gradients in a random channel order and direction plus noise:
+        # JPEG-friendly, and no two requests of one shape alike.
+        yy, xx = np.mgrid[0:h, 0:w]
+        if rng.rand() < 0.5:
+            yy, xx = yy[::-1], xx[:, ::-1]
+        base = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 255 // (h + w)], -1)
+        img = base[..., rng.permutation(3)] + rng.randint(-60, 61, 3)
+        img = np.clip(img + rng.randint(-20, 21, (h, w, 3)), 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=90)
+        bodies.append(buf.getvalue())
+        decoded.append(np.asarray(Image.open(io.BytesIO(bodies[-1])).convert("RGB")))
+    print(f"[serve] {len(bodies)} JPEG requests, shapes sampled from data/validation.odgt "
+          f"(seed 0): {shapes}; sent twice per round", flush=True)
+    return bodies, decoded
 
 
 def serving_phase(work, ckpt, torch, ppm_pool, card):
@@ -1558,14 +1646,11 @@ def serving_phase(work, ckpt, torch, ppm_pool, card):
     then admission control (``--max-queue 2``, 16 concurrent requests).
     Returns the launches of the served traffic."""
     import collections
-    import io
 
     import numpy as np
-    from PIL import Image
 
     from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
     from semseg_tpu_torch.cli import serve as serve_cli
-    from semseg_tpu_torch.data.dataset import sample_odgt_shapes
     from semseg_tpu_torch.models import ModelBuilder
     from semseg_tpu_torch.ops.preproc import normalize_255
     from semseg_tpu_torch.ops.resize import resize_bilinear
@@ -1620,25 +1705,7 @@ def serving_phase(work, ckpt, torch, ppm_pool, card):
         raise RuntimeError(f"7 mixed images: {ppm_pool.LAUNCHES} dense launches, expected 3")
     serving_f32(work, ckpt, torch, Predictor, export_serving)
 
-    shapes = sample_odgt_shapes(os.path.join(HERE, "data", "validation.odgt"), SERVE_REQUESTS,
-                                seed=0)
-    rng = np.random.RandomState(12)
-    bodies, decoded = [], []
-    for h, w in shapes:
-        # Gradients in a random channel order and direction plus noise:
-        # JPEG-friendly, and no two requests of one shape alike.
-        yy, xx = np.mgrid[0:h, 0:w]
-        if rng.rand() < 0.5:
-            yy, xx = yy[::-1], xx[:, ::-1]
-        base = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 255 // (h + w)], -1)
-        img = base[..., rng.permutation(3)] + rng.randint(-60, 61, 3)
-        img = np.clip(img + rng.randint(-20, 21, (h, w, 3)), 0, 255).astype(np.uint8)
-        buf = io.BytesIO()
-        Image.fromarray(img).save(buf, format="JPEG", quality=90)
-        bodies.append(buf.getvalue())
-        decoded.append(np.asarray(Image.open(io.BytesIO(bodies[-1])).convert("RGB")))
-    print(f"[serve] {len(bodies)} JPEG requests, shapes sampled from data/validation.odgt "
-          f"(seed 0): {shapes}; sent twice per round", flush=True)
+    bodies, decoded = _serve_requests()
     launches = {"dense": 0, "valid": 0}
 
     lone = [pred.predict(d) for d in decoded]
@@ -1646,7 +1713,7 @@ def serving_phase(work, ckpt, torch, ppm_pool, card):
     print(f"[serve] each request predicted alone at each slot of its batch of "
           f"{len(record.at)}: least agreement with its slot-0 map {record.spread():.6f}",
           flush=True)
-    batches, _, dense, valid = _run_path("cli.serve --bundle traffic", lambda: _serve_traffic(
+    (batches, _), _, dense, valid = _run_path("cli.serve --bundle traffic", lambda: _serve_traffic(
         "bundle", server, bodies, lone, AGREE, card, record), ppm_pool, torch)
     server.close()
     if not (batches <= dense <= 2 * batches and valid == 0):
@@ -1899,12 +1966,13 @@ def dp_nccl_world_of_one(torch, ppm_pool, train_root, train_odgt, work, card):
     losses = {}
     env = {"SEMSEG_COORDINATOR": f"127.0.0.1:{distributed.free_port()}",
            "SEMSEG_NUM_PROCESSES": "1", "SEMSEG_PROCESS_ID": "0"}
-    runs = [("single card A", []), ("single card B", []),
+    # One card each (cli.train's default takes every visible card).
+    runs = [("single card A", ["--devices", "1"]), ("single card B", ["--devices", "1"]),
             ("--multihost NCCL world of 1", ["--multihost"])]
     while runs:
         name, flags = runs.pop(0)
         out = os.path.join(work, "dp_" + name.split()[-1])
-        multihost = bool(flags)
+        multihost = "--multihost" in flags
         if multihost:
             os.environ.update(env)
             distributed.initialize = spy
@@ -1924,7 +1992,7 @@ def dp_nccl_world_of_one(torch, ppm_pool, train_root, train_odgt, work, card):
         print(f"[dp] (b) cli.train {name}: per-step losses {losses[name]} ({seconds:.1f} s "
               f"wall; card: {card})", flush=True)
         if name.endswith("B") and losses[name] != losses["single card A"]:
-            runs.insert(0, ("single card C", []))
+            runs.insert(0, ("single card C", ["--devices", "1"]))
     m = losses.pop("--multihost NCCL world of 1")
     singles = list(losses.values())
 
@@ -2044,11 +2112,14 @@ def data_parallel_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_
             "backward": a["backward"] + b["backward"]}
 
 
-def multi_card_phase(work, torch, card, ckpt, val_dir, odgt, train_root, train_odgt):
+def multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_root,
+                     train_odgt):
     """With more than one visible card: a rank per card over NCCL. The ranks
     against one process (as phase 10 (a)); ``cli.train --devices N`` for one
     epoch on phase 8's data (rank 0 writes the checkpoint); ``cli.eval
-    --exact`` on N engines against one engine (the sums equal)."""
+    --exact`` on N engines against one engine (the sums equal); ``cli.serve
+    --devices N``, a backend per card, over phase 9's bundle (exported on
+    card 0) and the live engine (as phase 11 (c))."""
     import numpy as np
 
     from semseg_tpu_torch.cli import eval as eval_cli, train as train_cli
@@ -2085,9 +2156,369 @@ def multi_card_phase(work, torch, card, ckpt, val_dir, odgt, train_root, train_o
     if not (all(np.array_equal(one[k], many[k]) for k in ("inter", "union", "pix_count"))
             and abs(one["acc_sum"] - many["acc_sum"]) <= 1e-12 * one["acc_sum"]):
         raise RuntimeError(f"cli.eval --exact on {n} cards disagrees with one card")
-    print(f"[multi] --exact sums on {n} engines (one per card) equal one engine's; the "
-          f"multi-card phase took {time.perf_counter() - start:.1f} s (card: {card})",
+    print(f"[multi] --exact sums on {n} engines (one per card) equal one engine's",
           flush=True)
+    serve_devices_phase(work, ckpt, torch, ppm_pool, card, devices=n)
+    print(f"[multi] the multi-card phase took {time.perf_counter() - start:.1f} s (card: "
+          f"{card})", flush=True)
+
+
+# Phase 11: the slice's modules. (a) the native host library: JPEG decode
+# and the pyramid bit-equal to PIL on phase 8's and the val set's images, a
+# TrainDataset batch equal to the PIL path's, host times on one thread;
+# (b) TPU.remat: two f32 steps bit-equal to the plain run under
+# deterministic algorithms, BN's iter too, then bench.py's batch-8 step
+# both ways (ms/step, peak memory); (c) cli.serve --devices 2 on one card,
+# bundle and live, at 1 and 4 clients with phase 9's requests (the live
+# engine, 5 scales per request, the first half) and rules; (d) cli.eval
+# --profile on two val images.
+HOST_TIMED_BATCHES = 10  # TrainDataset batches per path, after one warm-up
+HOST_TIMED_PASSES = 3  # pyramid passes over the originals per path
+REMAT_TIMED = (3, 5)  # runs x steps of bench.py's step per setting
+SLICE_CONCURRENCY = (1, 4)
+
+
+class _NoNative:
+    """``SEMSEG_NO_NATIVE=1`` while entered: the data layer's PIL path."""
+
+    def __enter__(self):
+        os.environ["SEMSEG_NO_NATIVE"] = "1"
+
+    def __exit__(self, *exc):
+        del os.environ["SEMSEG_NO_NATIVE"]
+
+
+def native_phase(train_root, train_odgt, val_dir, odgt, card):
+    """(a): the build, bit-equality with PIL, host times on one thread."""
+    import contextlib
+
+    import numpy as np
+    from PIL import Image
+
+    from semseg_tpu_torch import native
+    from semseg_tpu_torch.data import PyramidBuilder, TrainDataset, parse_odgt
+
+    available, info, jpeg = native.available(), native.build_info(), native.jpeg_available()
+    print(f"[native] g++ command: {info.get('command')}; library {info.get('library')} "
+          f"({'compiled by this process' if info.get('built') else 'found built'}); libjpeg "
+          + ("found" if jpeg else "NOT FOUND: JPEGs decode with PIL and "
+             "TPU.train_fast_decode decodes exactly")
+          + f"; available() {available}, jpeg_available() {jpeg}", flush=True)
+    if not available:
+        raise RuntimeError(f"the native library did not build on this host: {info}")
+
+    cfg = _cfg()
+    builder = PyramidBuilder(cfg.DATASET, bucket_step=cfg.TPU.eval_bucket_step)
+    files = ([os.path.join(train_root, r["fpath_img"]) for r in parse_odgt(train_odgt)]
+             + [os.path.join(val_dir, r["fpath_img"]) for r in parse_odgt(odgt)])
+    oris = []
+    for path in files:
+        pil = np.asarray(Image.open(path).convert("RGB"))
+        oris.append(pil)
+        if jpeg:
+            with open(path, "rb") as f:
+                got = native.decode_jpeg_verified(f.read())
+            if got is None or not np.array_equal(got, pil):
+                raise RuntimeError(f"{path}: the native decode differs from PIL's")
+        levels = builder.multi_scale_pyramid(pil, raw=True)
+        with _NoNative():
+            want = builder.multi_scale_pyramid(pil, raw=True)
+        if not all(np.array_equal(a, b) for a, b in zip(levels, want)):
+            raise RuntimeError(f"{path}: a native pyramid level differs from PIL's")
+    print(f"[native] {len(files)} JPEGs (phase 8's training set and the val set): "
+          + ("decode_jpeg_verified bit-equal to PIL, " if jpeg else "")
+          + "the 5-level uint8 pyramid (step 8) bit-equal to PIL's", flush=True)
+
+    tcfg = _cfg(*_train_cfg_opts(train_root, train_odgt))
+
+    def batches(n, **kw):
+        ds = TrainDataset(train_root, train_odgt, tcfg.DATASET, batch_per_gpu=2, seed=5,
+                          bucket_step=tcfg.TPU.bucket_step, **kw)
+        return [ds.next_batch() for _ in range(n)]
+
+    worst = 0.0
+    for raw in (True, False):
+        got = batches(4, raw_transport=raw)
+        with _NoNative():
+            want = batches(4, raw_transport=raw)
+        for a, b in zip(got, want):
+            if not (np.array_equal(a["seg_label"], b["seg_label"])
+                    and a["img_data"].shape == b["img_data"].shape):
+                raise RuntimeError("a native TrainDataset batch differs from the PIL path's")
+            d = float(np.abs(a["img_data"].astype(np.float64) - b["img_data"]).max())
+            if (raw and d) or d > 1e-6:
+                raise RuntimeError(f"native TrainDataset images differ from PIL's by {d}")
+            worst = max(worst, d)
+    print(f"[native] TrainDataset, 4 batches of 2, native against SEMSEG_NO_NATIVE=1 (seed "
+          f"5): labels equal, uint8 images bit-equal, float32 images max |d| {worst:.2e} "
+          f"(limit 1e-6, the JAX package's test)", flush=True)
+
+    def pyramid_s(no_native):
+        runs = []
+        for _ in range(HOST_TIMED_PASSES):
+            with _NoNative() if no_native else contextlib.nullcontext():
+                tic = time.perf_counter()
+                for ori in oris:
+                    builder.multi_scale_pyramid(ori, raw=True)
+            runs.append((time.perf_counter() - tic) / len(oris))
+        return sorted(runs)[len(runs) // 2]
+
+    def batch_s(no_native, **kw):
+        with _NoNative() if no_native else contextlib.nullcontext():
+            ds = TrainDataset(train_root, train_odgt, tcfg.DATASET, batch_per_gpu=2, seed=6,
+                              bucket_step=tcfg.TPU.bucket_step, raw_transport=True, **kw)
+            ds.next_batch()
+            tic = time.perf_counter()
+            for _ in range(HOST_TIMED_BATCHES):
+                ds.next_batch()
+        return (time.perf_counter() - tic) / HOST_TIMED_BATCHES
+
+    def resize_ms(fn, arrays):
+        """ms per resize of each array to 3/4 of its size."""
+        tic = time.perf_counter()
+        for _ in range(HOST_TIMED_PASSES):
+            for a in arrays:
+                fn(a, (a.shape[0] * 3 // 4, a.shape[1] * 3 // 4))
+        return (time.perf_counter() - tic) / (HOST_TIMED_PASSES * len(arrays)) * 1e3
+
+    labels = [np.asarray(Image.open(os.path.join(train_root, r["fpath_segm"])))
+              for r in parse_odgt(train_odgt)]
+    pil_resize = {kind: lambda a, hw, k=kind: Image.fromarray(a).resize(hw[::-1], k)
+                  for kind in (Image.BILINEAR, Image.NEAREST)}
+    print(f"[native] one resize to 3/4 size, one thread: bilinear (the RGB originals) PIL "
+          f"{resize_ms(pil_resize[Image.BILINEAR], oris):.3f} / native "
+          f"{resize_ms(native.resize_bilinear_u8, oris):.3f} ms; nearest (phase 8's label "
+          f"maps) PIL {resize_ms(pil_resize[Image.NEAREST], labels):.3f} / native "
+          f"{resize_ms(native.resize_nearest_u8, labels):.3f} ms", flush=True)
+    pil_pyr, nat_pyr = pyramid_s(True), pyramid_s(False)
+    pil_b, nat_b = batch_s(True), batch_s(False)
+    fast_b = batch_s(False, fast_decode=True)
+    print(f"[native] host times on one thread of this machine's CPU ({os.cpu_count()} cores "
+          f"visible): pyramid (5 uint8 levels, step 8) PIL {pil_pyr:.4f} / native "
+          f"{nat_pyr:.4f} s/image ({pil_pyr / nat_pyr:.2f}x), median of {HOST_TIMED_PASSES} "
+          f"passes over {len(oris)} originals; TrainDataset batch of 2 (uint8, decode + "
+          f"resize + labels) PIL {pil_b:.4f} / native {nat_b:.4f} ({pil_b / nat_b:.2f}x) / "
+          f"native fast_decode {fast_b:.4f} s/batch ({pil_b / fast_b:.2f}x"
+          + ("" if jpeg else ", no libjpeg: the exact decode")
+          + f"), mean of {HOST_TIMED_BATCHES} batches (card: {card})", flush=True)
+
+
+def remat_phase(torch, ppm_pool, card):
+    """(b): TPU.remat on against off on the card. Returns its launches.
+
+    The two float32 runs go under deterministic algorithms: with the card's
+    default ones two plain runs differ by as much as remat and plain do, so
+    a check with tolerances reads the card's rounding and fails at random;
+    deterministic, remat must give the plain run's bits."""
+    import numpy as np
+
+    from semseg_tpu_torch.models.layers import BatchNorm2d
+    from semseg_tpu_torch.parallel import dropout_generator, train_step
+
+    launches = {"dense": 0, "valid": 0, "backward": 0}
+    rng = np.random.RandomState(14)
+    n, h, w = 2, 256, 320
+    host = [{"img_data": rng.randn(n, h, w, 3).astype(np.float32),
+             "seg_label": rng.randint(-1, 150, (n, h // 8, w // 8)).astype(np.int32)}
+            for _ in range(2)]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        with _deterministic(torch):
+            for remat in (False, True):
+                state = _train_model(torch, _cfg("TPU.compute_dtype", "float32",
+                                                 "TPU.remat", str(remat)), CARD)
+                batches = [{k: torch.from_numpy(v).to(CARD) for k, v in b.items()}
+                           for b in host]
+
+                def steps():
+                    return [{k: float(v) for k, v in train_step(
+                        state, b, dropout_generator(0, i)).items()}
+                        for i, b in enumerate(batches)]
+
+                metrics, _, dense, valid = _run_path(
+                    f"remat {'on' if remat else 'off'}: 2 float32 train steps", steps,
+                    ppm_pool, torch, backward=2)
+                if (dense, valid) != (2, 0):
+                    raise RuntimeError(f"remat {remat}: pool launches {dense} / {valid}")
+                launches["dense"] += dense
+                launches["backward"] += 2
+                runs[remat] = (state, metrics)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (plain, pm), (remat, rm) = runs[False], runs[True]
+    params, buffers = dict(plain.model.named_parameters()), dict(plain.model.named_buffers())
+    grad_rel = {k: float((p.grad - params[k].grad).norm() / params[k].grad.norm())
+                for k, p in remat.model.named_parameters() if k in DP_GRADS}
+    differ = ([f"{k} (value)" for k, p in remat.model.named_parameters()
+               if not torch.equal(p, params[k])]
+              + [f"{k} (gradient)" for k, p in remat.model.named_parameters()
+                 if not torch.equal(p.grad, params[k].grad)]
+              + [k for k, b in remat.model.named_buffers() if not torch.equal(b, buffers[k])])
+    n_bn = sum(isinstance(m, BatchNorm2d) for m in remat.model.modules())
+    it = float(remat.model.encoder.layer4[2].bn3._running_iter)
+    print(f"[remat] flagship f32 (TF32 off, deterministic algorithms), batch {n} {h}x{w}, 2 "
+          f"steps, TPU.remat on against off from the same weights and batches: losses "
+          f"{[m['loss'] for m in rm]} / {[m['loss'] for m in pm]}, accuracies "
+          f"{[m['acc'] for m in rm]} / {[m['acc'] for m in pm]}; gradients relative norm "
+          + ", ".join(f"{k} {v:.3e}" for k, v in grad_rel.items())
+          + f"; {len(params)} parameters with their gradients and {len(buffers)} buffers "
+          f"({n_bn} BNs' running statistics and iter): {len(differ)} differ "
+          f"{differ[:5]} (layer4.2.bn3 iter {it:.6f}, two updates: 2.997001)", flush=True)
+    if rm != pm or differ or len(grad_rel) != len(DP_GRADS) or abs(it - 2.997001) >= 1e-5:
+        raise RuntimeError("TPU.remat: the remat step departs from the plain one")
+    del plain, remat, runs, params, state, batches
+    torch.cuda.empty_cache()
+
+    bs, h, w = BENCH_TRAIN
+    rng = np.random.RandomState(0)
+    batch = {"img_data": torch.from_numpy(rng.randn(bs, h, w, 3).astype(np.float32)).to(CARD),
+             "seg_label": torch.from_numpy(
+                 rng.randint(-1, 150, (bs, h // 8, w // 8)).astype(np.int32)).to(CARD)}
+    out = {}
+    n_runs, n_steps = REMAT_TIMED
+    for remat in (False, True):
+        state = _train_model(torch, _cfg("TPU.remat", str(remat)), CARD)
+
+        def timed():
+            float(train_step(state, batch, dropout_generator(0, state.step))["loss"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 2**30
+            times = []
+            for _ in range(n_runs):
+                tic = time.perf_counter()
+                for _ in range(n_steps):
+                    m = train_step(state, batch, dropout_generator(0, state.step))
+                loss = float(m["loss"])
+                times.append((time.perf_counter() - tic) / n_steps)
+            if not np.isfinite(loss):
+                raise RuntimeError(f"remat {remat}: non-finite loss {loss}")
+            return sorted(times), torch.cuda.max_memory_allocated() / 2**30, base
+
+        steps = 1 + n_runs * n_steps
+        (times, peak, base), _, dense, _ = _run_path(
+            f"remat {'on' if remat else 'off'}: bench.py's train step", timed, ppm_pool, torch,
+            backward=steps)
+        launches["dense"] += dense
+        launches["backward"] += steps
+        out[remat] = (times[0], times[len(times) // 2], peak, base)
+        del state
+        torch.cuda.empty_cache()
+    (pb, pmed, ppeak, pbase), (rb, rmed, rpeak, rbase) = out[False], out[True]
+    print(f"[remat] bench.py's train step, flagship bf16, batch {bs} {h}x{w}, {n_runs} x "
+          f"{n_steps} steps: remat off {pb * 1e3:.1f} ms best / {pmed * 1e3:.1f} median, peak "
+          f"{ppeak:.2f} GiB; remat on {rb * 1e3:.1f} / {rmed * 1e3:.1f} ms, peak {rpeak:.2f} "
+          f"GiB (allocated between steps: {pbase:.2f} / {rbase:.2f} GiB, the weights, "
+          f"gradients, momentum and the batch); remat/plain: time {rmed / pmed:.3f}x, peak "
+          f"memory {rpeak / ppeak:.3f}x, peak above that {(rpeak - rbase) / (ppeak - pbase):.3f}x "
+          f"(card: {card})", flush=True)
+    if not rpeak < ppeak:
+        raise RuntimeError(f"TPU.remat did not lower the peak: {rpeak} against {ppeak} GiB")
+    return launches
+
+
+def serve_devices_phase(work, ckpt, torch, ppm_pool, card, devices=None):
+    """(c): ``cli.serve --devices N`` over phase 9's bundle (exported on
+    card 0) and over the live engine, phase 9's requests at 1 and 4
+    clients: at one client each map equals the map one backend gives its
+    request alone, at 4 the bundle's map equals its request's at the slots
+    it was served in and the live map is closest to its own request.
+    ``devices`` None: two backends on cuda:0; else ``--devices N`` over the
+    cards. Returns the launches."""
+    from semseg_tpu_torch.cli import serve as serve_cli
+
+    if devices is None:
+        flags, n = ["--device", "cuda:0", "--devices", "2"], 2
+    else:
+        flags, n = ["--devices", str(devices)], devices
+    tag = f"--devices {n}" + (" on cuda:0" if devices is None else "")
+    bodies, decoded = _serve_requests()
+    launches = {"dense": 0, "valid": 0}
+    common = ["--host", "127.0.0.1", "--port", "0", "--quiet", *flags]
+    for backend in ("bundle", "live"):
+        if backend == "bundle":
+            server, preds = serve_cli.build_server(
+                [*common, "--bundle", os.path.join(work, "bundle"), "--max-batch",
+                 str(SERVE_BATCH)])
+            lone = [preds[0].predict(d) for d in decoded]
+            record = _SlotRecord(preds[0], decoded)
+            for pred in preds[1:]:
+                for key, program in list(pred.programs.items()):
+                    pred.programs[key] = record._recorded(program)
+            agree = AGREE
+            where = [str(p.device) for p in preds]
+        else:
+            # Half the requests: the live engine runs 5 scales per request.
+            bodies, decoded = bodies[:SERVE_REQUESTS // 2], decoded[:SERVE_REQUESTS // 2]
+            server, preds = serve_cli.build_server(
+                [*common, "--cfg", CFG, "--max-batch", "8", "DIR", ckpt])
+            lone = [preds[0].predict_batch([d])[0] for d in decoded]
+            record, agree = None, None
+            where = [str(p._engine.device) for p in preds]
+        if len(preds) != n or server.info["devices"] != n:
+            raise RuntimeError(f"{tag}: {len(preds)} backends, info {server.info}")
+        try:
+            (batches, per_backend), _, dense, valid = _run_path(
+                f"cli.serve --{backend} {tag} traffic", lambda: _serve_traffic(
+                    f"{backend} {tag}", server, bodies, lone, agree, card, record,
+                    concurrency=SLICE_CONCURRENCY), ppm_pool, torch)
+        finally:
+            server.close()
+        print(f"[serve] {backend} {tag}: backends on {where}, batches per backend over the "
+              f"rounds {per_backend}", flush=True)
+        if not per_backend or min(per_backend) == 0:
+            raise RuntimeError(f"{backend} {tag}: a backend took no batch: {per_backend}")
+        if backend == "bundle" and not (batches <= dense <= 2 * batches and valid == 0):
+            raise RuntimeError(f"bundle {tag}: {batches} batches, launches {dense} / {valid}")
+        if backend == "live" and (dense or not valid):
+            raise RuntimeError(f"live {tag}: launches dense {dense} / valid {valid}")
+        launches["dense"] += dense
+        launches["valid"] += valid
+    return launches
+
+
+def eval_profile_phase(work, ckpt, val_dir, odgt, torch, ppm_pool, card):
+    """(d): ``cli.eval --profile`` over the first two val images; the trace
+    names the pad-aware pool's kernels. Returns the launches."""
+    from semseg_tpu_torch.cli import eval as eval_cli
+
+    two = os.path.join(val_dir, "two.odgt")
+    with open(odgt) as f, open(two, "w") as g:
+        g.writelines(f.readlines()[:2])
+    trace_dir = os.path.join(work, "eval_profile")
+    data = ["DIR", ckpt, "DATASET.root_dataset", val_dir, "DATASET.list_val", two]
+    chunks = expected_chunks(_cfg(*data), val_dir, two, flagship=False)
+    (miou, _, _, raw), seconds, dense, valid = _run_path(
+        "cli.eval --profile, 2 images", lambda: eval_cli.main(
+            ["--cfg", CFG, "--profile", trace_dir, *data]), ppm_pool, torch)
+    path = os.path.join(trace_dir, "eval_trace.json")
+    with open(path) as f:
+        names = {e.get("name") or "" for e in json.load(f)["traceEvents"]}
+    pool = sorted(n for n in names if "ppm_combine_kernel" in n or "ppm_cells_kernel" in n)
+    valid_kernels = [n for n in pool if "ppm_combine_kernel" in n and "true>" in n]
+    print(f"[profile] cli.eval --profile over 2 images: {os.path.getsize(path) / 1e6:.1f} MB "
+          f"trace, {len(names)} distinct event names, {seconds:.1f} s wall; pool kernels in "
+          f"it: {[n[:70] for n in pool]}; mIoU {miou:.4f} (card: {card})", flush=True)
+    if (dense, valid) != (0, chunks) or not valid_kernels or not raw["pix_count"]:
+        raise RuntimeError(f"cli.eval --profile: launches {dense} / {valid} (expected 0 / "
+                           f"{chunks}), pad-aware kernels in the trace {valid_kernels}")
+    return {"dense": dense, "valid": valid}
+
+
+def slice_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_root, train_odgt):
+    """Phase 11: (a)-(d) above. Returns the launches."""
+    start = time.perf_counter()
+    native_phase(train_root, train_odgt, val_dir, odgt, card)
+    launches = remat_phase(torch, ppm_pool, card)
+    for more in (serve_devices_phase(work, ckpt, torch, ppm_pool, card),
+                 eval_profile_phase(work, ckpt, val_dir, odgt, torch, ppm_pool, card)):
+        for form, count in more.items():
+            launches[form] += count
+    print(f"[slice] phase 11 took {time.perf_counter() - start:.1f} s (card: {card})",
+          flush=True)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2158,8 +2589,13 @@ def main(argv=None) -> int:
                                           train_root, train_odgt)
         for form in ("dense", "valid"):
             launches[form] += dp_launches[form]
+        slice_launches = slice_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt,
+                                     train_root, train_odgt)
+        for form in ("dense", "valid"):
+            launches[form] += slice_launches[form]
         if torch.cuda.device_count() > 1:
-            multi_card_phase(work, torch, card, ckpt, val_dir, odgt, train_root, train_odgt)
+            multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_root,
+                             train_odgt)
 
     def numbers(case):
         # bf16 at the first timed case of the form; no single PyTorch call
@@ -2180,7 +2616,8 @@ def main(argv=None) -> int:
         {"name": "pyramid_pool_backward", **entry,
          # No Pallas backward exists: JAX differentiates XLA's pool here.
          "replaces": "semseg_tpu/ops/pool.py:55",
-         "launches": train_launches["backward"] + dp_launches["backward"],
+         "launches": (train_launches["backward"] + dp_launches["backward"]
+                      + slice_launches["backward"]),
          "max_abs_err": backward_err,
          **dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by"),
                     backward_times[(BACKWARD_TIMED[0], "bfloat16")])), "library_ms": None},

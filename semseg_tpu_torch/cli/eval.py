@@ -17,6 +17,13 @@ val set in turn, one thread each, as the JAX CLI does
 (``cli/eval_multipro.py`` defaults to every visible card). Several hosts
 each evaluate a slice (``--start-idx/--end-idx --metrics-out``) and
 ``tools/combine_eval_shards.py`` sums the slices.
+
+``--profile DIR`` writes a ``torch.profiler`` trace of the eval loop (CPU
+and CUDA activities) to ``DIR/eval_trace.json`` (Chrome trace format),
+stopped once whether the loop ends or raises. The engines run in threads
+of their own, so the trace holds their kernels but not their CPU-side
+operators. ``--spatial N`` > 1 (the JAX CLI's height sharding) is not
+ported and raises, as ``TPU.spatial`` does.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from semseg_tpu_torch.engine import (
     output_stride_for,
 )
 from semseg_tpu_torch.models import ModelBuilder
+from semseg_tpu_torch.models.builder import refuse_spatial
 from semseg_tpu_torch.parallel.distributed import visible_cards
 from semseg_tpu_torch.utils import (
     AverageMeter,
@@ -289,9 +297,16 @@ def main(argv=None):
     parser.add_argument("--metrics-out", default="",
                         help="write raw combinable metric sums (acc_sum, "
                              "pix_count, per-class inter/union) to this .npz")
+    parser.add_argument("--profile", default="",
+                        help="write a torch.profiler trace of the eval loop (CPU and "
+                             "CUDA activities, Chrome trace format) into this directory")
+    parser.add_argument("--spatial", type=int, default=0,
+                        help="the JAX CLI's height sharding over N chips: not ported; "
+                             "N > 1 raises")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = parser.parse_args(argv)
+    refuse_spatial(args.spatial, "--spatial")
     # parse_odgt slices only when both indices are >= 0.
     if (args.start_idx >= 0) != (args.end_idx >= 0):
         if args.start_idx >= 0:
@@ -305,6 +320,7 @@ def main(argv=None):
         cfg.merge_from_list(args.opts)
     if args.bucket_step:
         cfg.TPU.eval_bucket_step = args.bucket_step
+    refuse_spatial(cfg.TPU.spatial)
     resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
 
     logger = setup_logger()
@@ -324,10 +340,27 @@ def main(argv=None):
         logger.info(f"{len(engines)} engine(s) on {', '.join(str(e.device) for e in engines)}")
     loader = make_loader(cfg, engines, exact=args.exact, device_pyramid=device_pyramid,
                          start_idx=args.start_idx, end_idx=args.end_idx)
-    result = evaluate(
-        engines, loader, cfg, logger, visualize=cfg.VAL.visualize,
-        vis_dir=os.path.join(cfg.DIR, "result"),
-    )
+    prof = None
+    on_card = any(e.device.type == "cuda" for e in engines)
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(args.profile, exist_ok=True)
+        prof = profile(activities=[ProfilerActivity.CPU]
+                       + ([ProfilerActivity.CUDA] if on_card else []))
+        prof.start()
+    try:
+        result = evaluate(
+            engines, loader, cfg, logger, visualize=cfg.VAL.visualize,
+            vis_dir=os.path.join(cfg.DIR, "result"),
+        )
+    finally:  # the trace is written whether the loop ends or raises
+        if prof is not None:
+            if on_card:
+                torch.cuda.synchronize()
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(args.profile, "eval_trace.json"))
+            logger.info(f"Wrote a profiler trace of the eval loop to {args.profile}")
     if args.metrics_out:
         raw = {k: v for k, v in result[3].items() if k != "seconds_per_image"}
         np.savez(args.metrics_out, **raw)

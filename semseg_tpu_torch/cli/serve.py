@@ -1,6 +1,6 @@
 """Serving CLI (``semseg_tpu/cli/serve.py``): segmentation over HTTP with
-dynamic micro-batching (``semseg_tpu_torch/server.py``), on one card, from
-either backend:
+dynamic micro-batching (``semseg_tpu_torch/server.py``), from either
+backend:
 
   # exported bundle (python -m semseg_tpu_torch.tools.export_serving) —
   # no model zoo on the serving host:
@@ -12,22 +12,61 @@ either backend:
 
   curl -s -X POST --data-binary @img.jpg localhost:8000/segment?format=color > seg.png
 
-Runs on the card unless ``--device cpu``. More than one card
-(``--devices``) is ROADMAP item 11.
+Runs on the card unless ``--device cpu``. ``--devices N`` builds one
+backend per card, the first N visible (N backends on the one device of
+``--device cuda:K`` or ``--device cpu``), and the micro-batcher runs one
+dispatcher thread per backend off the shared request queue; fewer visible
+cards than asked for exit at start. A bundle exported on one card runs on
+any other (``serving.Predictor`` moves its programs there).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 
 import numpy as np
+import torch
+
+
+def serve_devices(device, count: int):
+    """The devices of ``count`` backends: the first ``count`` cards for a
+    bare ``cuda`` (``cli.eval.engine_devices``' rule, kept here so that a
+    bundle host imports no model code), else ``count`` times ``device``.
+    Fewer visible cards than asked for exit, as in the JAX CLI."""
+    d = torch.device(device)
+    if count > 1 and d.type == "cuda" and d.index is None:
+        avail = torch.cuda.device_count()
+        if avail < count:
+            raise SystemExit(f"--devices {count} requested but only {avail} "
+                             "device(s) available on this host")
+        return [torch.device("cuda", i) for i in range(count)]
+    return [d] * max(count, 1)
+
+
+def _on_device(fn, device):
+    """``fn`` called with ``device`` as the calling thread's current card
+    (a dispatcher thread starts on card 0)."""
+    if device.type != "cuda":
+        return fn
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with torch.cuda.device(device):
+            return fn(*args, **kwargs)
+
+    return call
+
+
+def _bind(backends, devices):
+    for be, d in zip(backends, devices):
+        be.predict_batch = _on_device(be.predict_batch, d)
 
 
 def build_backends(args, opts):
-    """Returns (list of predict_batch backends, info dict, warmup thunk)."""
-    if (getattr(args, "devices", 1) or 1) > 1:
-        raise NotImplementedError("the port serves from one device (multi-GPU: ROADMAP item 11)")
-    device = getattr(args, "device", "cuda")
+    """Returns (list of backends, info dict, warmup thunk). Each backend's
+    ``predict_batch`` runs with its device current."""
+    devices = serve_devices(getattr(args, "device", "cuda"), getattr(args, "devices", 1) or 1)
     if args.bundle:
         if opts:
             raise SystemExit(
@@ -36,7 +75,7 @@ def build_backends(args, opts):
             )
         from semseg_tpu_torch.serving import Predictor
 
-        backends = [Predictor(args.bundle, device=device)]
+        backends = [Predictor(args.bundle, device=d) for d in devices]
         info = {
             "backend": "bundle",
             "bundle": args.bundle,
@@ -45,11 +84,13 @@ def build_backends(args, opts):
         }
 
         def warmup():
-            # One call per exported program: the first call of each sets
-            # up its kernels, which would tax the first unlucky request.
+            # One call per exported program per backend: the first call of
+            # each sets up its kernels, which would tax the first request.
             for be in backends:
                 for (b, h, w) in be.programs:
                     be.predict_batch([np.zeros((h, w, 3), np.uint8)] * b)
+
+        _bind(backends, devices)
 
         return backends, info, warmup
 
@@ -65,9 +106,10 @@ def build_backends(args, opts):
     resolve_reference_checkpoint(cfg, cfg.TEST.checkpoint)
     # batch > 1 selects BatchedInferenceEngine (LivePredictor requires its
     # batched_predict); pack_buckets folds under-filled request batches.
-    engines = build_engines(cfg, 1, batch=max(2, args.max_batch), pack_buckets=True,
-                            device=device)
+    engines = build_engines(cfg, batch=max(2, args.max_batch), pack_buckets=True,
+                            devices=devices)
     backends = [LivePredictor(cfg, e) for e in engines]
+    _bind(backends, devices)
     info = {
         "backend": "live",
         "cfg": args.cfg,
@@ -78,7 +120,7 @@ def build_backends(args, opts):
 
     def warmup():
         # The buckets of ONE representative shape (the canonical 2:3 val
-        # image); other buckets set up lazily per request.
+        # image) per backend; other buckets set up lazily per request.
         for be in backends:
             be.predict_batch([np.zeros((512, 683, 3), np.uint8)])
 
@@ -99,7 +141,8 @@ def build_server(argv=None):
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--devices", type=int, default=1,
-                   help="serve from the first N cards (N > 1: ROADMAP item 11)")
+                   help="backends: one per card on the first N cards (N on the one "
+                        "device of --device cuda:K or cpu), one dispatcher thread each")
     p.add_argument("--device", default="cuda")
     p.add_argument("--max-batch", type=int, default=8, help="batch-size flush threshold")
     p.add_argument("--max-wait-ms", type=float, default=10.0,
@@ -135,7 +178,7 @@ def build_server(argv=None):
         request_timeout_s=args.request_timeout_s,
     )
     logger.info(
-        f"serving {info['backend']} backend on {args.device} at "
+        f"serving {info['backend']} backend on {args.device} x {info['devices']} at "
         f"http://{args.host}:{server.server_address[1]} "
         f"(max_batch={args.max_batch}, max_wait_ms={args.max_wait_ms})"
     )

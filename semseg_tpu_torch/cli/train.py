@@ -17,11 +17,13 @@ so a run resumed at epoch N repeats the uninterrupted run's epochs after N
 (with one worker; more workers interleave their streams in arrival order).
 The JAX CLI keeps one stream across epochs and restarts it on resume.
 
-Data parallelism, one process (rank) per card: ``--devices N`` (or
-``--gpus 0-3``, whose length counts) starts N ranks on this host, on the
-first N visible cards (fewer if fewer are visible, as the JAX package's
-``make_mesh`` takes them), NCCL between them; with ``--device cpu`` N gloo
-ranks on the CPU. ``--multihost`` joins a run whose ranks are started
+Data parallelism, one process (rank) per card, as many as the JAX CLI's
+``build_train_mesh`` takes devices: ``TPU.data_parallel``, else
+``--devices N`` (or ``--gpus 0-3``, whose length counts), else every
+visible card. The ranks run on the first cards of this host (fewer if fewer
+are visible, as the JAX package's ``make_mesh`` slices its device list),
+NCCL between them; with ``--device cpu`` that many gloo ranks on the CPU,
+and one process when neither names a number. ``--multihost`` joins a run whose ranks are started
 elsewhere, one per card, named by ``SEMSEG_COORDINATOR`` /
 ``SEMSEG_NUM_PROCESSES`` / ``SEMSEG_PROCESS_ID`` or by torchrun's
 variables (``parallel.distributed.initialize``). The global batch is
@@ -30,7 +32,11 @@ package's data-parallel step over it (``parallel.train_step``). Only rank 0
 logs and writes checkpoints; every rank reads one on resume.
 
 Runs on the card unless ``--device cpu``. ``--profile DIR`` writes a
-``torch.profiler`` trace of rank 0's first steps.
+``torch.profiler`` trace of rank 0's first steps. ``TPU.remat`` recomputes
+each ResNet block's activations in the backward
+(``models.resnet.ResBlock``); ``TPU.train_fast_decode`` decodes training
+JPEGs at a reduced scale (``data.TrainDataset``). ``TPU.spatial`` > 1 (the
+JAX package's height sharding) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from semseg_tpu_torch.checkpoint import (
 from semseg_tpu_torch.config import cfg as _default_cfg
 from semseg_tpu_torch.data import TrainDataset, TrainLoader
 from semseg_tpu_torch.models import ModelBuilder
+from semseg_tpu_torch.models.builder import refuse_spatial
 from semseg_tpu_torch.parallel import (
     create_train_state,
     current_lrs,
@@ -166,13 +173,24 @@ def train_one_epoch(state, batches, cfg, epoch, history, logger, profile_dir="")
                     f"Loss: {ave_loss.average():.6f}")
 
 
-def rank_count(device, requested: int) -> int:
-    """Ranks for ``--devices requested``: on cards the first
-    ``min(requested, visible)``, on the CPU as many as requested."""
-    requested = max(requested, 1)
+def rank_count(device, requested: int, data_parallel: int = 0) -> int:
+    """Ranks for ``TPU.data_parallel`` or else ``--devices requested``, as
+    the JAX CLI sizes its mesh (``semseg_tpu/cli/train.py:51``): on cards
+    the first ``min(n, visible)``, every visible card when both are 0; on
+    the CPU ``n``, one process when both are 0."""
+    n = data_parallel or requested
     if torch.device(device).type != "cuda":
-        return requested
-    return distributed.visible_cards(requested)
+        return max(n, 1)
+    return distributed.visible_cards(n or torch.cuda.device_count())
+
+
+def load_cfg(args):
+    """The config of ``args``: defaults < ``--cfg`` < ``opts``."""
+    cfg = _default_cfg.clone()
+    cfg.merge_from_file(args.cfg)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    return cfg
 
 
 def _rank_main(rank, args, world, port):
@@ -200,10 +218,7 @@ def run(args, rendezvous=None):
 
 
 def _train(args, device, group):
-    cfg = _default_cfg.clone()
-    cfg.merge_from_file(args.cfg)
-    if args.opts:
-        cfg.merge_from_list(args.opts)
+    cfg = load_cfg(args)
     rank, world = distributed.process_index(), distributed.process_count()
     logger = setup_logger(distributed_rank=rank)
     logger.info(f"Loaded configuration file {args.cfg}")
@@ -213,9 +228,6 @@ def _train(args, device, group):
             f.write(cfg.dump())
     np.random.seed(cfg.TRAIN.seed)
     torch.manual_seed(cfg.TRAIN.seed)
-    if cfg.TPU.train_fast_decode:
-        raise NotImplementedError("TPU.train_fast_decode needs the native JPEG decoder "
-                                  "(ROADMAP item 14)")
     logger.info(f"Mesh: {world} device(s) / {world} process(es); global batch "
                 f"{cfg.TRAIN.batch_size_per_gpu * world}"
                 + (f" x {cfg.TPU.grad_accum} grad-accum microbatches"
@@ -270,9 +282,10 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="semseg_tpu_torch training")
     parser.add_argument("--cfg", default="config/ade20k-resnet50dilated-ppm_deepsup.yaml")
     parser.add_argument("--devices", type=int, default=0,
-                        help="cards to train on, one process each (0 = one); more than "
-                             "are visible: every visible card; with --device cpu, gloo "
-                             "processes on the CPU")
+                        help="cards to train on, one process each (0 = TPU.data_parallel, "
+                             "else every visible card); more than are visible: every "
+                             "visible card; with --device cpu, gloo processes on the CPU "
+                             "(0: one)")
     parser.add_argument("--gpus", default=None,
                         help="reference CLI parity: the device list's length sizes "
                              "--devices (an explicit --devices wins)")
@@ -298,10 +311,15 @@ def main(argv=None):
     args = parse_args(argv)
     if args.multihost:
         return run(args, {})
-    ranks = rank_count(args.device, args.devices)
-    if ranks < args.devices:
+    cfg = load_cfg(args)
+    refuse_spatial(cfg.TPU.spatial)
+    asked = cfg.TPU.data_parallel or args.devices
+    ranks = rank_count(args.device, args.devices, cfg.TPU.data_parallel)
+    if ranks < asked:
         setup_logger().info(f"{ranks} card(s) visible: training on {ranks} of the "
-                            f"{args.devices} asked for")
+                            f"{asked} asked for")
+    elif not asked and ranks > 1:
+        setup_logger().info(f"training on every visible card: {ranks}")
     if ranks == 1:
         return run(args)
     torch.multiprocessing.spawn(_rank_main, args=(args, ranks, distributed.free_port()),

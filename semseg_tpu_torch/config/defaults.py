@@ -6,8 +6,13 @@ the reference framework (``mit_semseg/config/defaults.py:7-97``) so that the
 seven shipped ``config/*.yaml`` files load verbatim, with an additional
 ``TPU`` group holding options that only exist in the TPU-native rebuild (mesh
 shape, compute dtype, shape-bucketing lattice for jit-compiled dynamic
-resolutions). The port reads ``TPU.compute_dtype`` and
-``TPU.eval_bucket_step`` from it.
+resolutions). The port reads these ``TPU`` keys: ``compute_dtype``,
+``eval_bucket_step``, ``bucket_step``, ``device_preproc``, ``prefetch``,
+``grad_accum``, ``async_checkpoint``, ``data_parallel`` (the training
+ranks), ``train_fast_decode`` (the native reduced JPEG decode), ``remat``
+(activation checkpointing of the ResNet blocks) and ``spatial`` (values
+above 1 raise: height sharding is not ported). ``max_buckets`` and
+``compile_cache`` concern XLA only and are not read.
 
 Precedence (same as the reference, ``train.py:235-236``):
     defaults  <  YAML file (``merge_from_file``)  <  CLI opts (``merge_from_list``)

@@ -17,11 +17,15 @@
   ``device_pyramid_canvas`` a val item whose original fits the canvas has
   no host pyramid: the device-pyramid engine derives it.
 
-Images decode and resize with PIL only. The JAX package's native libjpeg
-decode and resizer give the same pixels (it checks them bit for bit against
-PIL), so the pyramids and the training batches are equal. Its
-``train_fast_decode`` (a reduced-scale JPEG decode) needs that native
-decoder and is not ported (ROADMAP item 14).
+JPEGs decode and every Pillow bilinear/nearest resize runs through the
+native host library (``semseg_tpu_torch.native``) when it is built and
+``SEMSEG_NO_NATIVE`` is unset: a libjpeg decode that a once-per-process
+oracle holds bit-equal to PIL, Pillow's fixed-point resampling with the
+flip fused in, and the fused resize + normalise. The pixels are PIL's either
+way. ``TrainDataset(fast_decode=True)`` (``TPU.train_fast_decode``) decodes
+each training JPEG at the smallest DCT-domain scale that covers its target
+size, a cheaper resample with slightly different pixels; without a libjpeg
+build it decodes exactly.
 """
 
 from __future__ import annotations
@@ -34,12 +38,26 @@ import numpy as np
 from PIL import Image
 
 from .transforms import (
+    MEAN,
+    STD,
     img_transform,
     imresize,
     round2nearest_multiple,
     scale_for,
     segm_transform,
 )
+
+
+def _native_ok() -> bool:
+    """Use the C++ fused preprocessing unless disabled via env."""
+    if os.environ.get("SEMSEG_NO_NATIVE"):
+        return False
+    try:
+        from semseg_tpu_torch import native
+
+        return native.available()
+    except Exception:
+        return False
 
 
 def _effective_lattice(bucket_step, padding_constant: int) -> int:
@@ -51,8 +69,32 @@ def _effective_lattice(bucket_step, padding_constant: int) -> int:
     return ((bucket_step - 1) // padding_constant + 1) * padding_constant
 
 
+def _jpeg_bytes_for_native(path: str):
+    """The file's bytes when the native libjpeg path applies, else None."""
+    if not (_native_ok() and path.lower().endswith((".jpg", ".jpeg"))):
+        return None
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except OSError:
+        return None
+
+
 def _decode_rgb(path: str) -> np.ndarray:
-    """Decode an image file to an RGB uint8 (H, W, 3) array."""
+    """Decode an image file to an RGB uint8 (H, W, 3) array.
+
+    JPEGs go through the native libjpeg decode while its per-process
+    oracle holds it bit-equal to PIL (``native.decode_jpeg_verified``);
+    everything else (PNG, an oracle mismatch, no native build) decodes with
+    PIL. The pixels are the same either way.
+    """
+    data = _jpeg_bytes_for_native(path)
+    if data is not None:
+        from semseg_tpu_torch import native
+
+        out = native.decode_jpeg_verified(data)
+        if out is not None:
+            return out
     return np.asarray(Image.open(path).convert("RGB"), np.uint8)
 
 
@@ -105,7 +147,8 @@ class PyramidBuilder:
     def multi_scale_pyramid(self, img, *, raw: bool = False) -> List[np.ndarray]:
         """Per-scale resized copies, each (1, H, W, 3).
 
-        ``img``: RGB uint8 array or PIL image.
+        ``img``: RGB uint8 array or PIL image. Resampling runs through the
+        native Pillow-bit-exact resizer when built (same pixels either way).
         ``raw=False``: normalized float32 (reference parity).
         ``raw=True``: uint8 — normalization happens on the device inside the
         inference engine (4x smaller host→device transfer).
@@ -121,15 +164,21 @@ class PyramidBuilder:
         # UPerNet/HRNet configs pad to 32 (padding_constant), so a finer
         # requested bucket_step rounds up to it.
         rounding = _effective_lattice(self.eval_bucket_step, self.padding_constant)
+        use_native = _native_ok()
         out = []
         for short_size in sizes:
             scale = scale_for(ori_height, ori_width, short_size, self.imgMaxSize)
             target_h = round2nearest_multiple(int(ori_height * scale), rounding)
             target_w = round2nearest_multiple(int(ori_width * scale), rounding)
-            resized = np.asarray(
-                imresize(Image.fromarray(arr), (target_w, target_h), interp="bilinear"),
-                dtype=np.uint8,
-            )
+            if use_native:
+                from semseg_tpu_torch import native
+
+                resized = native.resize_bilinear_u8(arr, (target_h, target_w))
+            else:
+                resized = np.asarray(
+                    imresize(Image.fromarray(arr), (target_w, target_h), interp="bilinear"),
+                    dtype=np.uint8,
+                )
             out.append(resized[None] if raw else img_transform(resized)[None])
         return out
 
@@ -145,16 +194,15 @@ class TrainDataset(BaseDataset):
     def __init__(self, root_dataset, odgt, opt, batch_per_gpu=1, *, seed=304,
                  bucket_step: Optional[int] = None, raw_transport: bool = False,
                  fast_decode: bool = False, **kwargs):
-        if fast_decode:
-            raise NotImplementedError(
-                "TPU.train_fast_decode needs the native JPEG decoder, which the "
-                "port has not yet (ROADMAP item 14); set it False"
-            )
         super().__init__(odgt, opt, **kwargs)
         self.root_dataset = root_dataset
         self.segm_downsampling_rate = opt.segm_downsampling_rate
         self.batch_per_gpu = batch_per_gpu
         self.raw_transport = raw_transport
+        # Decode JPEGs at the smallest libjpeg DCT-domain scale that covers
+        # the target size: cheaper, with slightly different pixels than a
+        # full decode and resize (training only).
+        self.fast_decode = fast_decode
         # The batch canvas lattice: bucket_step rounded up to keep the
         # architecture's padding_constant alignment, as the eval path does.
         self.bucket_step = _effective_lattice(
@@ -191,6 +239,67 @@ class TrainDataset(BaseDataset):
                 self._bins[bin_idx].clear()
                 return batch
 
+    def _decode_native(self, img_path: str, h_i: int, w_i: int):
+        """libjpeg decode of one training image → (array, full-size (H, W)),
+        or None (the PIL fallback).
+
+        The full-size decode goes through ``decode_jpeg_verified`` (the
+        oracle against PIL). With ``fast_decode`` a downscaled sample
+        decodes instead at the smallest scale_num/8 whose output still
+        covers (h_i, w_i), and the Pillow-parity resize runs from that
+        smaller source. The full-size dims come along, so that the caller
+        keeps the reference's image/label size check.
+        """
+        data = _jpeg_bytes_for_native(img_path)
+        if data is None:
+            return None
+        from semseg_tpu_torch import native
+
+        if self.fast_decode:
+            dims = native.decode_jpeg_dims(data)
+            if dims is not None:
+                oh, ow = dims
+                # ceil(8 * needed scale): decoded dims ceil(dim * m / 8)
+                # then cover the target on both axes.
+                m = max(-(-8 * h_i // oh) if oh else 8, -(-8 * w_i // ow) if ow else 8)
+                if 1 <= m < 8:
+                    arr = native.decode_jpeg(data, scale_num=int(m))
+                    if arr is not None:
+                        return arr, (oh, ow)
+        arr = native.decode_jpeg_verified(data)
+        return None if arr is None else (arr, arr.shape[:2])
+
+    def _sample_native(self, rec, img_path, flip, h_i, w_i, rate):
+        """One sample through the native library: (image, label) as the PIL
+        path gives them (``fast_decode`` aside), the flip fused into each
+        resize."""
+        from semseg_tpu_torch import native
+
+        decoded = self._decode_native(img_path, h_i, w_i)
+        if decoded is None:
+            img_arr = np.asarray(Image.open(img_path).convert("RGB"), np.uint8)
+            img_full_hw = img_arr.shape[:2]
+        else:
+            img_arr, img_full_hw = decoded
+        segm = Image.open(os.path.join(self.root_dataset, rec["fpath_segm"]))
+        assert segm.mode == "L"
+        seg_arr = np.asarray(segm, np.uint8)
+        # The reference's `assert img.size == segm.size`: a mispaired record
+        # fails here instead of training on misaligned pairs.
+        assert tuple(img_full_hw) == seg_arr.shape[:2], (img_path, img_full_hw,
+                                                          seg_arr.shape[:2])
+        if self.raw_transport:
+            arr = native.resize_bilinear_u8(img_arr, (h_i, w_i), flip=flip)
+        else:
+            arr = native.preprocess(img_arr, (h_i, w_i), (h_i, w_i), MEAN, STD, flip=flip)
+        seg_small = native.resize_nearest_u8(seg_arr, (h_i, w_i), flip=flip)
+        sr_h = round2nearest_multiple(h_i, rate)
+        sr_w = round2nearest_multiple(w_i, rate)
+        seg_pad = np.zeros((sr_h, sr_w), np.uint8)
+        seg_pad[:h_i, :w_i] = seg_small
+        lab = native.resize_nearest_u8(seg_pad, (sr_h // rate, sr_w // rate)).astype(np.int32) - 1
+        return arr, lab
+
     def next_batch(self) -> dict:
         """One batch: ``img_data`` (N, H, W, 3) float32 (uint8 with
         ``raw_transport``, plus ``img_valid_hw`` (N, 2) int32) and
@@ -213,10 +322,17 @@ class TrainDataset(BaseDataset):
                           np.uint8 if self.raw_transport else np.float32)
         segms = np.full((self.batch_per_gpu, batch_h // rate, batch_w // rate), -1, np.int32)
 
+        use_native = _native_ok()
         for i, rec in enumerate(records):
+            img_path = os.path.join(self.root_dataset, rec["fpath_img"])
             flip = bool(self.rng.integers(2))
             h_i, w_i = int(heights[i]), int(widths[i])
-            img = Image.open(os.path.join(self.root_dataset, rec["fpath_img"])).convert("RGB")
+            if use_native:
+                arr, lab = self._sample_native(rec, img_path, flip, h_i, w_i, rate)
+                images[i, :h_i, :w_i] = arr
+                segms[i, : lab.shape[0], : lab.shape[1]] = lab
+                continue
+            img = Image.open(img_path).convert("RGB")
             segm = Image.open(os.path.join(self.root_dataset, rec["fpath_segm"]))
             assert segm.mode == "L"
             assert img.size == segm.size

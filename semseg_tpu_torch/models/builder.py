@@ -17,7 +17,9 @@ A built module is in eval mode, in ``torch.channels_last`` and on
 calls ``.train()``; ``weights`` loads a reference-format ``.pth`` strictly.
 ``build_model`` also sets the training forward's ``deep_sup_scale``
 (``TRAIN.deep_sup_scale`` for the ``*deepsup`` decoders) and ``fix_bn``
-(``TRAIN.fix_bn``).
+(``TRAIN.fix_bn``), and ``remat`` (``TPU.remat``) on the ResNet/ResNeXt
+encoders, as JAX does (not on MobileNetV2 or HRNetV2). ``TPU.spatial`` > 1
+raises ``NotImplementedError`` (``refuse_spatial``).
 """
 
 from __future__ import annotations
@@ -85,12 +87,24 @@ _ENCODERS = {
 }
 
 
-def _encoder(arch: str, dtype: torch.dtype) -> nn.Module:
+def refuse_spatial(spatial: int, name: str = "TPU.spatial") -> None:
+    """``TPU.spatial`` or ``cli.eval --spatial`` > 1 (the JAX package's GSPMD
+    height sharding) is not ported: raise rather than run without it."""
+    if spatial > 1:
+        raise NotImplementedError(
+            f"{name} {spatial}: sharding each image's height across cards is not "
+            "ported yet (ROADMAP item 17); leave it at 1 (data parallelism: "
+            "--devices)")
+
+
+def _encoder(arch: str, dtype: torch.dtype, remat: bool = False) -> nn.Module:
     if arch in ("resnet34", "resnet34dilated"):
         raise NotImplementedError(arch)
     if arch not in _ENCODERS:
         raise ValueError(f"Architecture undefined: {arch!r}")
-    return _ENCODERS[arch](dtype=dtype)
+    if arch in ("mobilenetv2dilated", "hrnetv2"):  # no remat, as in JAX
+        return _ENCODERS[arch](dtype=dtype)
+    return _ENCODERS[arch](dtype=dtype, remat=remat)
 
 
 def _decoder(arch: str, fc_dim: int, num_class: int, encoder_arch) -> nn.Module:
@@ -111,9 +125,11 @@ class ModelBuilder:
     @staticmethod
     def build_encoder(arch: str = "resnet50dilated", fc_dim: int = 512,
                       weights: str = "", *, dtype: torch.dtype = torch.float32,
-                      device="cuda", generator: torch.Generator | None = None):
-        """Build an encoder by architecture key (reference models.py:63-110)."""
-        encoder = _encoder(arch.lower(), dtype)
+                      device="cuda", generator: torch.Generator | None = None,
+                      remat: bool = False):
+        """Build an encoder by architecture key (reference models.py:63-110);
+        ``remat`` checkpoints the ResNet/ResNeXt blocks in training."""
+        encoder = _encoder(arch.lower(), dtype, remat)
         _init(encoder, generator or torch.Generator().manual_seed(0),
               mode="fan_out", bn_bias=0.0)
         return _finish(encoder, weights, device)
@@ -138,14 +154,16 @@ class ModelBuilder:
     def build_model(cfg, *, dtype: torch.dtype | None = None, device="cuda",
                     seed: int = 0) -> SegmentationModel:
         """The full model from a config node, weights from cfg.MODEL, the
-        training forward's settings from cfg.TRAIN."""
+        training forward's settings from cfg.TRAIN, ``remat`` from
+        cfg.TPU."""
+        refuse_spatial(cfg.TPU.spatial)
         if dtype is None:
             dtype = getattr(torch, cfg.TPU.compute_dtype)
         generator = torch.Generator().manual_seed(seed)
         encoder = ModelBuilder.build_encoder(
             cfg.MODEL.arch_encoder, cfg.MODEL.fc_dim,
             weights=cfg.MODEL.weights_encoder, dtype=dtype, device=device,
-            generator=generator,
+            generator=generator, remat=bool(cfg.TPU.remat),
         )
         decoder = ModelBuilder.build_decoder(
             cfg.MODEL.arch_decoder, fc_dim=cfg.MODEL.fc_dim,

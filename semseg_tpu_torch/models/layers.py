@@ -12,6 +12,8 @@ Module and slot names follow the reference's ``state_dict`` keys, so its
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -20,6 +22,28 @@ from torch import nn
 import torch.nn.functional as F
 
 from semseg_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train
+
+
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of an activation checkpoint's recompute in the backward
+    (``models.resnet.ResBlock`` under ``TPU.remat``): a training BN there
+    normalises with the batch statistics as the first forward did, but
+    leaves its running statistics and ``_running_iter`` as that forward
+    left them, so that a step advances them once, as JAX's functional
+    ``batch_stats`` do."""
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = False
+
+
+def in_recompute() -> bool:
+    return getattr(_recompute, "active", False)
 
 
 class Dropout2d(nn.Module):
@@ -85,6 +109,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     own name (the JAX package's ``batch_stats.iter``). A state_dict without
     ``_running_iter`` (a file written before it existed) loads strict with 1
     filled in, the JAX package's initial value.
+
+    Inside an activation checkpoint's recompute (``recomputing``) training
+    mode computes the same output and does not touch the buffers. With a
+    process group the recompute all-reduces the statistics again; every
+    rank recomputes the same blocks in the same order of one backward.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.001):
@@ -109,6 +138,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             self._running_iter, eps=self.eps, momentum=self.momentum,
             group=self.process_group,
         )
+        if in_recompute():
+            return y
         self.running_mean.copy_(mean)
         self.running_var.copy_(var)
         self._running_iter.copy_(it)

@@ -9,6 +9,13 @@
   gets dilation ``max(d // 2, 1)``, every other 3x3 conv of the stage gets
   ``d``; without ``dilate_scale`` the encoder has output stride 32.
 
+With ``remat`` (``TPU.remat``; the JAX package wraps each ``ResBlock`` in
+``nn.remat``) every residual block of a training forward runs under
+``torch.utils.checkpoint``: its activations are dropped after the forward
+and recomputed in the backward, for less activation memory at the cost of
+a second forward through the blocks. Eval is unchanged. BN's running
+statistics advance once per forward (``layers.recomputing``).
+
 Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
 ``layer3.0.downsample.0``), so its checkpoints load as they are. The encoder
 returns the four stage outputs ``[c2, c3, c4, c5]``.
@@ -16,14 +23,16 @@ returns the four stage outputs ``[c2, c3, c4, c5]``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from semseg_tpu_torch.ops.pool import max_pool2d
-from .layers import BatchNorm2d, Conv2d, ConvBN
+from .layers import BatchNorm2d, Conv2d, ConvBN, recomputing
 
 EXPANSION = {"basic": 1, "bottleneck": 4, "group_bottleneck": 2}
 
@@ -38,8 +47,9 @@ class ResBlock(nn.Module):
 
     def __init__(self, block: str, inplanes: int, planes: int, *, stride: int = 1,
                  dilation: int = 1, first_dilation: int = 1, groups: int = 1,
-                 has_downsample: bool = False):
+                 has_downsample: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         out_ch = planes * EXPANSION[block]
         self.basic = block == "basic"
         if self.basic:
@@ -63,6 +73,14 @@ class ResBlock(nn.Module):
         )
 
     def forward(self, x):
+        if self.remat and self.training and torch.is_grad_enabled():
+            # The block has no random op, so no RNG state is kept for the
+            # recompute.
+            return checkpoint(self._forward, x, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+        return self._forward(x)
+
+    def _forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
         if self.basic:
             out = self.bn2(self.conv2(out))
@@ -78,7 +96,7 @@ class ResNetEncoder(nn.Module):
 
     def __init__(self, block: str = "bottleneck", layers: Sequence[int] = (3, 4, 6, 3),
                  planes: Sequence[int] = (64, 128, 256, 512), *, groups: int = 1,
-                 dilate_scale: Optional[int] = None,
+                 dilate_scale: Optional[int] = None, remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dilate_scale = dilate_scale
@@ -106,6 +124,7 @@ class ResNetEncoder(nn.Module):
                     first_dilation=max(d // 2, 1) if first else d,
                     dilation=d, groups=groups,
                     has_downsample=first and (stride != 1 or inplanes != out_ch),
+                    remat=remat,
                 ))
             inplanes = out_ch
             self.add_module(f"layer{i + 1}", nn.Sequential(*stage))

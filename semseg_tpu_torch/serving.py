@@ -24,9 +24,12 @@ saving, so a program file holds the graph and no weights.
 Deliberate difference from the JAX package: a JAX bundle is lowered for
 several platforms at once (``platforms=``); a ``torch.export`` program
 holds its constants (the MEAN/STD tensors of ``ops.preproc``) on the
-device type it was exported on. The manifest names that device type, and
-``Predictor`` raises on a bundle exported for another one instead of
-moving it.
+device type it was exported on. The manifest names that device type (and
+the card's index), and ``Predictor`` raises on a bundle exported for
+another type instead of moving it. Within the type it moves: a bundle
+exported on card 0 runs on card 1 (``torch.export.passes.
+move_to_device_pass`` moves the program's constants and the devices its
+graph names).
 
 Inputs of other sizes are resized onto the nearest exported bucket (the
 eval pipeline's bucket-by-resize discipline) and the label map is
@@ -121,6 +124,7 @@ def export_bundle(
         "programs": programs,
         "params": names,
         "device": device.type,
+        "device_index": device.index,
         "torch_version": torch.__version__,
     }
     with open(os.path.join(out_dir, _MANIFEST), "w") as f:
@@ -133,7 +137,8 @@ class Predictor:
     and the pool's operators.
 
     The parameters go to the device once, at load time, and stay there.
-    A bundle exported on another device type raises.
+    A bundle exported on another device type raises; one exported on
+    another card of the type is moved to ``device``.
     """
 
     def __init__(self, bundle_dir: str, *, device="cuda"):
@@ -143,6 +148,8 @@ class Predictor:
             raise ValueError(f"{bundle_dir}: format {self.manifest['format']!r}, "
                              f"expected {FORMAT!r}")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if self.manifest["device"] != self.device.type:
             raise ValueError(
                 f"{bundle_dir} was exported on {self.manifest['device']!r} and holds "
@@ -154,6 +161,10 @@ class Predictor:
         self.programs = {}
         for p in self.manifest["programs"]:
             exp = torch.export.load(os.path.join(bundle_dir, p["file"]))
+            if self.device.index != self.manifest.get("device_index", self.device.index):
+                from torch.export.passes import move_to_device_pass
+
+                exp = move_to_device_pass(exp, self.device)
             self.programs[(p["batch"], p["h"], p["w"])] = exp.module()
 
     def _pick(self, h, w):

@@ -1,0 +1,113 @@
+"""The CLIs' device rules on the CPU, against the JAX package's.
+
+* ``cli.train`` trains on as many ranks as the JAX CLI's
+  ``build_train_mesh`` takes devices (``semseg_tpu/cli/train.py:41-69``):
+  ``TPU.data_parallel``, else ``--devices``/``--gpus``, else every visible
+  device, sliced to what is visible. Here JAX sees conftest's 8 CPU devices
+  and the port 8 cards (``torch.cuda.device_count`` patched), and each case
+  must give both the same count; with ``--device cpu`` and no number the
+  port trains in one process.
+* ``TPU.spatial`` > 1 and ``cli.eval --spatial`` > 1 raise a clear
+  ``NotImplementedError`` (the height sharding is not ported) in
+  ``cli.train``, ``cli.eval`` and ``ModelBuilder``.
+* ``cli.eval --profile DIR`` writes a Chrome trace of the eval loop, when
+  the loop ends and when it raises.
+"""
+
+import json
+import os
+
+import jax
+import pytest
+import torch
+
+from semseg_tpu.cli.train import build_train_mesh
+from semseg_tpu.config import cfg as jax_cfg
+
+from semseg_tpu_torch.cli import eval as eval_cli
+from semseg_tpu_torch.cli import train as train_cli
+from semseg_tpu_torch.config import cfg
+from semseg_tpu_torch.models import ModelBuilder
+from test_torch_dist_cli import CFG18
+from test_torch_train_cli import train_set  # noqa: F401  (the fixture)
+
+
+def _ranks(monkeypatch, argv, cards):
+    """How many processes ``cli.train.main(argv)`` trains in, with
+    ``cards`` cards visible: spawned ranks, or 1 for a run in-process."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.multiprocessing, "spawn",
+                        lambda fn, args, nprocs: seen.append(nprocs))
+    monkeypatch.setattr(train_cli, "run", lambda args, rendezvous=None: seen.append(1))
+    train_cli.main(["--cfg", CFG18, *argv])
+    (n,) = seen
+    return n
+
+
+# (--devices, TPU.data_parallel): the all-devices default, an explicit
+# count, more than are visible, data_parallel alone and over --devices.
+CASES = [(0, 0), (3, 0), (16, 0), (0, 2), (3, 2)]
+
+
+@pytest.mark.parametrize("devices,data_parallel", CASES)
+def test_train_ranks_follow_jax_build_train_mesh(devices, data_parallel, monkeypatch):
+    jc = jax_cfg.clone()
+    jc.merge_from_file(CFG18)
+    jc.TPU.data_parallel = data_parallel
+    visible = len(jax.devices())
+    want = build_train_mesh(jc, devices).size
+    argv = ["--devices", str(devices), "TPU.data_parallel", str(data_parallel)]
+    assert _ranks(monkeypatch, argv, visible) == want
+    # On the CPU a count is taken as asked; none asked is one process.
+    assert _ranks(monkeypatch, ["--device", "cpu", *argv], 0) == (data_parallel or devices or 1)
+
+
+def test_gpus_list_sizes_the_ranks(monkeypatch):
+    assert _ranks(monkeypatch, ["--gpus", "0-2"], 8) == 3
+
+
+@pytest.mark.parametrize("where", ["train", "eval", "eval --spatial", "builder"])
+def test_spatial_raises(where, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+        if where == "train":
+            train_cli.main(["--cfg", CFG18, "--device", "cpu", "DIR", str(tmp_path),
+                            "TPU.spatial", "2"])
+        elif where == "eval":
+            eval_cli.main(["--cfg", CFG18, "--device", "cpu", "TPU.spatial", "2"])
+        elif where == "eval --spatial":
+            eval_cli.main(["--cfg", CFG18, "--device", "cpu", "--spatial", "2"])
+        else:
+            c = cfg.clone()
+            c.merge_from_file(CFG18)
+            c.TPU.spatial = 2
+            ModelBuilder.build_model(c, device="cpu")
+
+
+def test_eval_profile_writes_a_trace_on_either_exit(train_set, tmp_path, monkeypatch):  # noqa: F811
+    """The trace is written when the loop ends and when it raises (the
+    engines' kernels land in it on the card, ``chip_smoke.py`` phase 11;
+    their CPU-side operators run in threads the profiler does not follow)."""
+    root, odgt = train_set
+    ckpt = str(tmp_path / "ckpt")
+    os.makedirs(ckpt)
+    c = cfg.clone()
+    c.merge_from_file(CFG18)
+    model = ModelBuilder.build_model(c, device="cpu", seed=0)
+    for part in ("encoder", "decoder"):
+        torch.save(getattr(model, part).state_dict(), os.path.join(ckpt, f"{part}_epoch_20.pth"))
+    argv = ["--cfg", CFG18, "--device", "cpu", "DIR", ckpt, "DATASET.root_dataset", root,
+            "DATASET.list_val", odgt, "DATASET.imgSizes", "(40,)", "DATASET.imgMaxSize", "64"]
+    miou, _, _, raw = eval_cli.main(["--profile", str(tmp_path / "ok"), *argv])
+    assert raw["pix_count"] > 0
+    with open(tmp_path / "ok" / "eval_trace.json") as f:
+        assert isinstance(json.load(f)["traceEvents"], list)
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("an engine failed")
+
+    monkeypatch.setattr(eval_cli, "evaluate", fail)
+    with pytest.raises(RuntimeError, match="an engine failed"):
+        eval_cli.main(["--profile", str(tmp_path / "raised"), *argv])
+    with open(tmp_path / "raised" / "eval_trace.json") as f:
+        assert isinstance(json.load(f)["traceEvents"], list)

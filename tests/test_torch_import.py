@@ -74,8 +74,8 @@ def _probe(env):
     count, loaded = proc.stdout.split(maxsplit=1)
     assert loaded.strip() == "[]"
     # package, subpackages and the ported modules (config, data and utils
-    # copies included)
-    assert int(count) >= 31
+    # copies and the native library's bindings included)
+    assert int(count) >= 50
 
 
 def test_walk_reaches_the_multi_card_entry_points():
@@ -96,6 +96,26 @@ def test_walk_reaches_the_multi_card_entry_points():
     tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
     top = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
     assert {"_dp_rank", "data_parallel_phase"} <= top
+
+
+def test_walk_reaches_the_native_library_and_the_new_entry_points():
+    """The scan and the probe reach the native host library's bindings and
+    their CPU fingerprint, and the entry points of remat, ``cli.serve
+    --devices`` and ``cli.eval --profile``."""
+    import importlib
+    import pkgutil
+
+    import semseg_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(semseg_tpu_torch.__path__,
+                                                    "semseg_tpu_torch.")}
+    assert {"semseg_tpu_torch.native", "semseg_tpu_torch.utils.host"} <= names
+    native = importlib.import_module("semseg_tpu_torch.native")
+    assert callable(native.decode_jpeg_verified) and callable(native.build_info)
+    assert callable(importlib.import_module("semseg_tpu_torch.cli.serve").serve_devices)
+    assert callable(importlib.import_module("semseg_tpu_torch.models.layers").recomputing)
+    eval_src = open(os.path.join(PORT, "cli", "eval.py")).read()
+    assert '"--profile"' in eval_src and '"--spatial"' in eval_src
 
 
 def test_port_imports_without_jax():

@@ -55,9 +55,12 @@ def test_serve_cli_builds_bundle_backend(bundle, predictor):
     np.testing.assert_array_equal(backend.predict_batch([img])[0], predictor.predict(img))
     with pytest.raises(SystemExit, match="no effect"):
         build_backends(args, ["TEST.checkpoint", "x.pth"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        build_backends(argparse.Namespace(bundle=bundle, cfg=None, device="cpu",
-                                          devices=2), [])
+    # --devices 2: two backends (both on the CPU here), each the bundle's.
+    backends, info, _ = build_backends(argparse.Namespace(bundle=bundle, cfg=None,
+                                                          device="cpu", devices=2), [])
+    assert len(backends) == info["devices"] == 2
+    for be in backends:
+        np.testing.assert_array_equal(be.predict_batch([img])[0], predictor.predict(img))
 
 
 def test_server_over_bundle(bundle, predictor):

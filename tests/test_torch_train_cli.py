@@ -84,9 +84,18 @@ def test_process_seed_matches_jax():
 
 
 def test_fast_decode_is_not_ported(train_set):
+    """``fast_decode`` was refused until the native library was ported; it
+    is accepted now, and on PNGs (no JPEG to decode at a reduced scale) it
+    gives the exact path's batches (JPEGs: ``test_torch_native_data.py``)."""
     root, odgt = train_set
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        TrainDataset(root, odgt, _opts(cfg.clone(), root, odgt).DATASET, fast_decode=True)
+    opt = _opts(cfg.clone(), root, odgt).DATASET
+    fast = TrainDataset(root, odgt, opt, batch_per_gpu=2, fast_decode=True)
+    exact = TrainDataset(root, odgt, opt, batch_per_gpu=2)
+    assert fast.fast_decode and not exact.fast_decode
+    for _ in range(2):
+        a, b = fast.next_batch(), exact.next_batch()
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_train_loader_raises_a_worker_error(train_set):
