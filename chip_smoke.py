@@ -120,12 +120,30 @@ PyTorch built for CUDA. In order:
    its rules, every backend taking batches; (d) ``cli.eval --profile`` over two val images: the trace names
    the pad-aware pool's kernels.
 
+12. spatial (after phase 11): (a) the pool's band form
+   (``pyramid_pool_band``: one band's per-bin f32 sums) against its plain
+   version in float32 and bfloat16, at the flagship's conv5 split in 2 and
+   4 bands, with odd C, a map whose address is not 16-byte aligned, bands
+   of one row, bins straddling bands and an empty extent; each launch
+   repeated bit for bit and the bands' sums turned into grids against the
+   pad-aware form; one band's time L2-cold at (1, 75, 100, 2048) in 2 and 4
+   bands beside its bound and the pad-aware form on the whole map; (b) the
+   flagship at full width, each level's height split in 2 and 4 bands on
+   cuda:0 (``InferenceEngine(spatial_devices=...)``), against the unsplit
+   bucketed engine over phase 6's images: in float32 with TF32 off max
+   |dscore| <= 2e-4 (the JAX package's bar, tests/test_engine.py:209), in
+   bfloat16 argmax agreement >= 0.99, the band launches counted; (c)
+   ``cli.eval --device cuda:0 --spatial 2`` end to end, two band launches
+   per level and no other pool launch.
+
 With more than one visible card, a last check puts a rank or an engine on
 every card: the ranks (NCCL) against one process as in 10 (a),
 ``cli.train --devices N`` for one epoch, ``cli.eval --exact --devices
-N`` against one engine, and ``cli.serve --devices N`` (a backend per card,
-the bundle exported on card 0) as in 11 (c). Run with no arguments on one
-card, it needs one.
+N`` against one engine, ``cli.serve --devices N`` (a backend per card,
+the bundle exported on card 0) as in 11 (c), and the spatial engine over
+the cards against one card (float32 within 2e-4) with its single-image
+latency at 1, 2 and 4 cards. Run with no arguments on one card, it needs
+one.
 
 It ends with a JSON line of per-kernel results, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}`` as the last
@@ -614,14 +632,15 @@ def expected_dp_chunks(cfg, shapes, batch=4, *, quiet=False):
     return chunks
 
 
-def _run_path(name, fn, ppm_pool, torch, backward=0):
+def _run_path(name, fn, ppm_pool, torch, backward=0, band=0):
     """Drive one path with the launch counts set to 0; returns (result,
     seconds, dense launches, valid launches). The backward kernel must
-    launch ``backward`` times."""
+    launch ``backward`` times, the band form ``band`` times."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ppm_pool.LAUNCHES = 0
     ppm_pool.VALID_LAUNCHES = 0
+    ppm_pool.BAND_LAUNCHES = 0
     ppm_pool.BACKWARD_LAUNCHES = 0
     tic = time.perf_counter()
     result = fn()
@@ -631,9 +650,10 @@ def _run_path(name, fn, ppm_pool, torch, backward=0):
     print(f"[main] {name}: pyramid_pool launches dense {dense}, valid_hw {valid}, backward "
           f"{ppm_pool.BACKWARD_LAUNCHES}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if ppm_pool.BACKWARD_LAUNCHES != backward:
-        raise RuntimeError(f"{name}: {ppm_pool.BACKWARD_LAUNCHES} backward launches, "
-                           f"expected {backward}")
+    if ppm_pool.BACKWARD_LAUNCHES != backward or ppm_pool.BAND_LAUNCHES != band:
+        raise RuntimeError(f"{name}: {ppm_pool.BACKWARD_LAUNCHES} backward launches "
+                           f"(expected {backward}), {ppm_pool.BAND_LAUNCHES} band launches "
+                           f"(expected {band})")
     return result, seconds, dense, valid
 
 
@@ -2159,6 +2179,7 @@ def multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_roo
     print(f"[multi] --exact sums on {n} engines (one per card) equal one engine's",
           flush=True)
     serve_devices_phase(work, ckpt, torch, ppm_pool, card, devices=n)
+    spatial_multi_card(ckpt, val_dir, odgt, torch, card, n)
     print(f"[multi] the multi-card phase took {time.perf_counter() - start:.1f} s (card: "
           f"{card})", flush=True)
 
@@ -2497,7 +2518,9 @@ def eval_profile_phase(work, ckpt, val_dir, odgt, torch, ppm_pool, card):
     with open(path) as f:
         names = {e.get("name") or "" for e in json.load(f)["traceEvents"]}
     pool = sorted(n for n in names if "ppm_combine_kernel" in n or "ppm_cells_kernel" in n)
-    valid_kernels = [n for n in pool if "ppm_combine_kernel" in n and "true>" in n]
+    # The pad-aware form's combine: ppm_combine_kernel<T, kValid = true,
+    # kBand = false>.
+    valid_kernels = [n for n in pool if "ppm_combine_kernel" in n and "true, false>" in n]
     print(f"[profile] cli.eval --profile over 2 images: {os.path.getsize(path) / 1e6:.1f} MB "
           f"trace, {len(names)} distinct event names, {seconds:.1f} s wall; pool kernels in "
           f"it: {[n[:70] for n in pool]}; mIoU {miou:.4f} (card: {card})", flush=True)
@@ -2519,6 +2542,259 @@ def slice_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_root, tr
     print(f"[slice] phase 11 took {time.perf_counter() - start:.1f} s (card: {card})",
           flush=True)
     return launches
+
+# Phase 12: spatial (``cli.eval --spatial``). (a) the band form of the pool
+# against its plain version, then timed; (b) the flagship split in 2 and 4
+# bands on cuda:0 against the unsplit bucketed engine; (c) ``cli.eval
+# --spatial 2`` end to end.
+# (shape, extents, row cuts): the flagship's conv5 in 2 and 4 bands; odd C
+# with bands of one row and bins straddling bands; an empty extent and one
+# of a few rows. The first case also runs on a map whose address is one
+# element past a 16-byte boundary.
+BAND_CHECKS = [
+    ((1, 75, 100, 2048), [[75, 100]], (0, 38, 75)),
+    ((1, 75, 100, 2048), [[75, 100]], (0, 19, 38, 57, 75)),
+    ((2, 38, 50, 250), [[38, 50], [21, 33]], (0, 1, 2, 13, 37, 38)),
+    ((3, 13, 17, 2048), [[13, 17], [0, 0], [3, 9]], (0, 6, 7, 13)),
+]
+# A band's sums against the plain version's: f32 sums of up to 7,500
+# elements of unit scale in another order.
+BAND_SUM_TOL = dict(atol=1e-3, rtol=1e-5)
+SPATIAL_BANDS = (2, 4)
+SPATIAL_SCORE = 2e-4  # tests/test_engine.py:209, 4 devices against one
+SPATIAL_AGREE = 0.99  # bf16: cuDNN's choices per band shape round apart
+
+
+def check_band_kernel(ppm_pool, torch) -> float:
+    """(a): every band of each case against the plain version, each launch
+    repeated bit for bit, the bands' sums as grids against the pad-aware
+    form. Returns the largest absolute difference of a band's sums."""
+    import numpy as np
+
+    max_err = 0.0
+    g = torch.Generator(device="cuda").manual_seed(12)
+    cases = [(*c, False) for c in BAND_CHECKS] + [(*BAND_CHECKS[0], True)]
+    for shape, extents, cuts, unaligned in cases:
+        v = torch.tensor(extents, dtype=torch.int32, device="cuda")
+        h = shape[1]
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            if unaligned:
+                flat = torch.randn(int(np.prod(shape)) + 1, generator=g, device="cuda")
+                x = flat.to(dtype)[1:].view(shape)
+            else:
+                x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            total, ptrs = None, []
+            for a, b in zip(cuts, cuts[1:]):
+                band = x[:, a:b] if shape[0] == 1 else x[:, a:b].contiguous()
+                ptrs.append(band.data_ptr() % 16)
+                sums = ppm_pool.pyramid_pool_band(band, v, a, h)
+                if not torch.equal(sums, ppm_pool.pyramid_pool_band(band, v, a, h)):
+                    raise RuntimeError(f"pyramid_pool_band {shape} rows [{a}, {b}): two "
+                                       "launches differ")
+                ref = ppm_pool.pyramid_pool_band_plain(band, v, a, h)
+                torch.testing.assert_close(sums, ref, **BAND_SUM_TOL)
+                max_err = max(max_err, (sums - ref).abs().max().item())
+                total = sums if total is None else total + sums
+            grids = ppm_pool.band_sums_to_grids(total, v, shape[1:3], dtype)
+            grid_err = 0.0
+            for o, r in zip(grids, ppm_pool.pyramid_pool_plain(x, valid_hw=v)):
+                torch.testing.assert_close(o.float(), r.float(), **_valid_tolerance(dtype))
+                grid_err = max(grid_err, (o.float() - r.float()).abs().max().item())
+            print(f"[spatial] pyramid_pool_band {shape} {dt} extents {extents} rows {cuts}"
+                  f"{', data_ptr % 16 = ' + str(ptrs) if unaligned else ''}: ok, each band's "
+                  f"two launches bit-equal; grids from the summed bands vs the pad-aware "
+                  f"plain form max |d| {grid_err:.3e}", flush=True)
+    torch.cuda.synchronize()
+    return max_err
+
+
+def band_bound_ms(shape, element_size):
+    """Least time of one band launch on an H100 SXM at full extents: the
+    band read once, 50 f32 sums per channel and the extents written or read
+    once, over 3.35 TB/s, against one f32 add per element at 67 TFLOP/s."""
+    n, hb, w, c = shape
+    moved = n * hb * w * c * element_size + n * 50 * c * 4 + 8 * n
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S * 1e3, n * hb * w * c / 67e12 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def time_band_kernel(ppm_pool, torch, card) -> dict:
+    """(a), timed: the flagship's conv5 (1, 75, 100, 2048) cut as a 600-row
+    canvas's stride-8 rows into 2 and 4 bands (``BandPlan``): the first
+    band's launch warm and L2-cold, its plain version, all bands in turn on
+    one card, and the pad-aware form on the whole map, cold. Returns
+    {(bands, dtype): (warm, cold, plain, bound, bound_by)}."""
+    from semseg_tpu_torch.parallel.spatial import BandPlan
+
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    v = torch.tensor([[75, 100]], dtype=torch.int32, device="cuda")
+    out = {}
+    for bands in SPATIAL_BANDS:
+        rows = BandPlan(600, bands).rows(8)
+        for dt in ("bfloat16", "float32"):
+            x = torch.randn(MAIN_SHAPE, device="cuda").to(getattr(torch, dt))
+            parts = [(x[:, a:b], a) for a, b in rows]
+            band, r0 = parts[0]
+
+            def one():
+                return ppm_pool.pyramid_pool_band(band, v, r0, 75)
+
+            def all_bands():
+                return [ppm_pool.pyramid_pool_band(p, v, a, 75) for p, a in parts]
+
+            warm = _median_ms(one, torch)
+            cold = _median_ms(one, torch, flush)
+            plain = _median_ms(lambda: ppm_pool.pyramid_pool_band_plain(band, v, r0, 75), torch)
+            every = _median_ms(all_bands, torch, flush)
+            whole = _median_ms(lambda: ppm_pool.pyramid_pool(x, valid_hw=v), torch, flush)
+            bound, bound_by = band_bound_ms(tuple(band.shape), x.element_size())
+            out[(bands, dt)] = (warm, cold, plain, bound, bound_by)
+            print(f"[time] pyramid_pool_band {tuple(band.shape)} (rows {rows[0]} of "
+                  f"{MAIN_SHAPE}, {bands} bands) {dt}: {warm:.4f} ms warm, {cold:.4f} ms cold; "
+                  f"bound {bound:.4f} ms ({bound_by}), share of bound {bound / cold:.3f} cold; "
+                  f"plain {plain:.4f} ms; all {bands} bands in turn on one card {every:.4f} ms "
+                  f"cold; the pad-aware form on the whole map {whole:.4f} ms cold (median of "
+                  f"50; card: {card})", flush=True)
+    return out
+
+
+def _pass_s(engine, pyrs, labels, torch):
+    """Seconds per image of one synchronised pass of ``engine``."""
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for p, lab in zip(pyrs, labels):
+        engine.mean_scores(p, lab.shape)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - tic) / len(pyrs)
+
+
+def spatial_engines(ckpt, val_dir, odgt, torch, ppm_pool, card):
+    """(b): the flagship at full width on cuda:0, each level split in 2
+    and 4 bands, against the unsplit bucketed engine over phase 6's images:
+    float32 (TF32 off) within SPATIAL_SCORE, bf16 argmax agreement at least
+    SPATIAL_AGREE; ``n`` band launches per level; in bf16 one more pass of
+    each engine, timed. Returns the launches."""
+    from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
+    from semseg_tpu_torch.cli.eval import build_engines
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    launches = 0
+    try:
+        for dt in ("float32", "bfloat16"):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            cfg = _cfg("DIR", ckpt, "TPU.compute_dtype", dt)
+            resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
+            pyrs, labels = _val_items(cfg, val_dir, odgt)
+            levels = sum(len(p) for p in pyrs)
+            fetch = None if dt == "float32" else "bfloat16"
+            base = build_engines(cfg, 1, device="cuda:0", fetch_dtype=fetch)[0]
+            refs = [base.mean_scores(p, lab.shape) for p, lab in zip(pyrs, labels)]
+            for n in SPATIAL_BANDS:
+                eng = build_engines(cfg, 1, device="cuda:0", fetch_dtype=fetch, spatial=n)[0]
+
+                def run():
+                    return [eng.mean_scores(p, lab.shape) for p, lab in zip(pyrs, labels)]
+
+                outs, wall, dense, valid = _run_path(f"spatial engine, {n} bands on cuda:0, "
+                                                     f"{dt}", run, ppm_pool, torch,
+                                                     band=n * levels)
+                launches += n * levels
+                err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+                agree = min((o.argmax(0) == r.argmax(0)).float().mean().item()
+                            for o, r in zip(outs, refs))
+                print(f"[spatial] {n} bands on cuda:0, {dt}: max |dscore| {err:.3e}, argmax "
+                      f"agreement (worst image) {agree:.6f} against the unsplit engine over "
+                      f"{len(pyrs)} images, {levels} levels; {n * levels} band launches, "
+                      f"dense {dense} / valid {valid}; {wall / len(pyrs):.4f} s/image "
+                      f"(first pass, card: {card})", flush=True)
+                ok = err <= SPATIAL_SCORE if dt == "float32" else agree >= SPATIAL_AGREE
+                if not ok or (dense, valid) != (0, 0):
+                    raise RuntimeError(f"the spatial engine ({n} bands, {dt}) disagrees with "
+                                       f"the unsplit engine: {err:.3e} / {agree:.6f}")
+                if dt == "bfloat16":
+                    unsplit, split = _pass_s(base, pyrs, labels, torch), _pass_s(
+                        eng, pyrs, labels, torch)
+                    print(f"[spatial] second pass, bf16: unsplit {unsplit:.4f} s/image, {n} "
+                          f"bands on cuda:0 {split:.4f} s/image ({split / unsplit:.2f}x; "
+                          f"card: {card})", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return launches
+
+
+def spatial_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt):
+    """Phase 12: (a)-(c) above. Returns (band launches of the spatial paths,
+    the band form's largest sum error, its times)."""
+    from semseg_tpu_torch.cli import eval as eval_cli
+
+    start = time.perf_counter()
+    err = check_band_kernel(ppm_pool, torch)
+    times = time_band_kernel(ppm_pool, torch, card)
+    launches = spatial_engines(ckpt, val_dir, odgt, torch, ppm_pool, card)
+    cfg = _cfg("DIR", ckpt)
+    levels = sum(len(p) for p in _val_items(cfg, val_dir, odgt)[0])
+    (miou, acc, _, raw), wall, dense, valid = _run_path(
+        "cli.eval --device cuda:0 --spatial 2", lambda: eval_cli.main(
+            ["--cfg", CFG, "--device", "cuda:0", "--spatial", "2", "DIR", ckpt,
+             "DATASET.root_dataset", val_dir, "DATASET.list_val", odgt]),
+        ppm_pool, torch, band=2 * levels)
+    launches += 2 * levels
+    if (dense, valid) != (0, 0) or not raw["pix_count"] or not 0.0 <= miou <= 1.0:
+        raise RuntimeError(f"cli.eval --spatial 2: launches {dense} / {valid}, mIoU {miou}")
+    print(f"[spatial] cli.eval --device cuda:0 --spatial 2: mIoU {miou:.4f}, accuracy "
+          f"{acc * 100:.2f}% (random weights), {2 * levels} band launches for {levels} levels, "
+          f"{wall / len(EVAL_IMAGES):.4f} s/image wall (model build included; card: {card})",
+          flush=True)
+    print(f"[spatial] phase 12 took {time.perf_counter() - start:.1f} s (card: {card})",
+          flush=True)
+    return launches, err, times
+
+
+def spatial_multi_card(ckpt, val_dir, odgt, torch, card, n):
+    """The multi-card check's spatial part: the flagship split over cuda:0
+    to cuda:n-1 against one card in float32 (TF32 off), within
+    SPATIAL_SCORE on three images; then the single-image latency (bf16,
+    5 scales) at 1, 2 and 4 cards."""
+    import numpy as np
+
+    from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
+    from semseg_tpu_torch.cli.eval import build_engines
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _cfg("DIR", ckpt, "TPU.compute_dtype", "float32")
+    resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
+    pyrs, labels = _val_items(cfg, val_dir, odgt)
+    one = build_engines(cfg, 1, device="cuda:0", fetch_dtype=None)[0]
+    many = build_engines(cfg, 1, device="cuda", fetch_dtype=None, spatial=n)[0]
+    err = max((many.mean_scores(p, lab.shape) - one.mean_scores(p, lab.shape)).abs().max().item()
+              for p, lab in list(zip(pyrs, labels))[:3])
+    print(f"[multi] spatial engine over {', '.join(map(str, many.spatial_devices))} against "
+          f"one card, float32: max |dscore| {err:.3e} (limit {SPATIAL_SCORE})", flush=True)
+    if err > SPATIAL_SCORE:
+        raise RuntimeError(f"the spatial engine over {n} cards disagrees with one card")
+    cfg = _cfg("DIR", ckpt)
+    resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
+    pyrs, labels = _val_items(cfg, val_dir, odgt)
+    latency = {}
+    for cards in (1, 2, 4):
+        if cards > n:
+            continue
+        eng = build_engines(cfg, 1, device="cuda:0" if cards == 1 else "cuda",
+                            fetch_dtype="bfloat16", spatial=cards)[0]
+        for p, lab in zip(pyrs, labels):  # warm-up: cuDNN sees every shape
+            eng.predict(p, lab.shape)
+        times = []
+        for p, lab in zip(pyrs, labels):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            eng.predict(p, lab.shape)
+            times.append(time.perf_counter() - tic)
+        latency[cards] = float(np.median(times))
+    print("[multi] single-image latency, flagship bf16, 5 scales, median over "
+          f"{len(pyrs)} images: " + ", ".join(f"{k} card(s) {v * 1e3:.1f} ms"
+                                              for k, v in latency.items()) +
+          f" (card: {card})", flush=True)
 
 
 def main(argv=None) -> int:
@@ -2560,6 +2836,9 @@ def main(argv=None) -> int:
         compare = ppm_pool.declare(load_library("ppm_pool_compare", [os.path.abspath(args.compare)]))
         print(f"[build] {args.compare} built/loaded for the comparison", flush=True)
 
+    # The band form first: its check is the quickest proof that the
+    # source built.
+    band_err = check_band_kernel(ppm_pool, torch)
     max_err = check_kernel(ppm_pool, torch)
     valid_err = check_valid_kernel(ppm_pool, torch)
     backward_err = check_backward_kernel(ppm_pool, torch)
@@ -2593,6 +2872,8 @@ def main(argv=None) -> int:
                                      train_root, train_odgt)
         for form in ("dense", "valid"):
             launches[form] += slice_launches[form]
+        band_launches, _, band_times = spatial_phase(work, torch, ppm_pool, card, ckpt,
+                                                     val_dir, odgt)
         if torch.cuda.device_count() > 1:
             multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_root,
                              train_odgt)
@@ -2621,6 +2902,15 @@ def main(argv=None) -> int:
          "max_abs_err": backward_err,
          **dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by"),
                     backward_times[(BACKWARD_TIMED[0], "bfloat16")])), "library_ms": None},
+        {"name": "pyramid_pool_band", **entry,
+         # The band form of the same pool: the JAX package lets GSPMD split
+         # the pool's sums over the sharded height.
+         "replaces": "semseg_tpu/ops/pallas/ppm_pool.py:40",
+         "launches": band_launches, "max_abs_err": band_err,
+         # bf16, the first of 2 bands; no single PyTorch call computes the
+         # sums.
+         **dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by"),
+                    band_times[(2, "bfloat16")])), "library_ms": None},
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -18,12 +18,20 @@ val set in turn, one thread each, as the JAX CLI does
 each evaluate a slice (``--start-idx/--end-idx --metrics-out``) and
 ``tools/combine_eval_shards.py`` sums the slices.
 
+``--spatial N`` > 1 is the JAX CLI's single-image latency mode: one
+bucketed per-image engine splits each level's height across N devices
+(``engine.InferenceEngine(spatial_devices=...)``): with a bare ``cuda``
+the first N visible cards, with ``cuda:0`` or ``cpu`` N bands on that one
+device. ``--devices`` is then ignored, and so are ``--batch`` and
+``--device-pyramid``, with a warning when passed; ``--exact`` runs unsplit
+on the first device, as the JAX CLI's does. ``TPU.spatial`` is not read
+here, as in JAX (the trainer reads it).
+
 ``--profile DIR`` writes a ``torch.profiler`` trace of the eval loop (CPU
 and CUDA activities) to ``DIR/eval_trace.json`` (Chrome trace format),
 stopped once whether the loop ends or raises. The engines run in threads
 of their own, so the trace holds their kernels but not their CPU-side
-operators. ``--spatial N`` > 1 (the JAX CLI's height sharding) is not
-ported and raises, as ``TPU.spatial`` does.
+operators.
 """
 
 from __future__ import annotations
@@ -47,7 +55,6 @@ from semseg_tpu_torch.engine import (
     output_stride_for,
 )
 from semseg_tpu_torch.models import ModelBuilder
-from semseg_tpu_torch.models.builder import refuse_spatial
 from semseg_tpu_torch.parallel.distributed import visible_cards
 from semseg_tpu_torch.utils import (
     AverageMeter,
@@ -84,29 +91,28 @@ def engine_devices(device, count: int = 1):
 
 
 def build_engines(cfg, num_devices=1, exact=False, batch=0, fetch_dtype=None,
-                  pack_buckets=False, *, device_pyramid=False, device="cuda", devices=None):
+                  pack_buckets=False, *, device_pyramid=False, device="cuda", devices=None,
+                  spatial=0):
     """One engine over the model that ``cfg`` names per device of
     ``devices`` (default ``engine_devices(device, num_devices)``; a device
     may repeat): the exact engine with ``exact``; for ``batch > 1`` the
     device-pyramid engine with ``device_pyramid``, else the batched engine;
-    otherwise the bucketed per-image engine."""
+    otherwise the bucketed per-image engine. With ``spatial`` > 1, one
+    per-image engine whose levels are split by height across
+    ``engine_devices(device, spatial)`` (``batch``, ``device_pyramid`` and
+    the device count unused), as ``semseg_tpu/cli/eval.py:249-275`` builds
+    one over ``make_mesh(spatial)``."""
+    if spatial > 1:
+        devices = engine_devices(device, spatial)
+        return [InferenceEngine(ModelBuilder.build_model(cfg, device=devices[0]),
+                                spatial_devices=devices,
+                                **_engine_kw(cfg, devices[0], exact, fetch_dtype))]
     if devices is None:
         devices = engine_devices(device, num_devices)
     engines = []
     for dev in devices:
         model = ModelBuilder.build_model(cfg, device=dev)
-        kw = dict(
-            num_class=cfg.DATASET.num_class,
-            device=dev,
-            exact=exact,
-            output_stride=output_stride_for(cfg),
-            # The engine's grouping lattice must equal the dataset's resize
-            # lattice, both aligned to the architecture's padding_constant.
-            bucket_step=_effective_lattice(cfg.TPU.eval_bucket_step,
-                                           cfg.DATASET.padding_constant),
-            padding_constant=cfg.DATASET.padding_constant,
-            fetch_dtype=fetch_dtype,
-        )
+        kw = _engine_kw(cfg, dev, exact, fetch_dtype)
         if batch > 1 and not exact and device_pyramid:
             engines.append(DevicePyramidEngine(
                 model, batch_size=batch, pack_buckets=pack_buckets,
@@ -117,6 +123,22 @@ def build_engines(cfg, num_devices=1, exact=False, batch=0, fetch_dtype=None,
         else:
             engines.append(InferenceEngine(model, **kw))
     return engines
+
+
+def _engine_kw(cfg, device, exact, fetch_dtype):
+    """The engine settings ``cfg`` and the CLI give every engine."""
+    return dict(
+        num_class=cfg.DATASET.num_class,
+        device=device,
+        exact=exact,
+        output_stride=output_stride_for(cfg),
+        # The engine's grouping lattice must equal the dataset's resize
+        # lattice, both aligned to the architecture's padding_constant.
+        bucket_step=_effective_lattice(cfg.TPU.eval_bucket_step,
+                                       cfg.DATASET.padding_constant),
+        padding_constant=cfg.DATASET.padding_constant,
+        fetch_dtype=fetch_dtype,
+    )
 
 
 def evaluate(engines, loader, cfg, logger, visualize=False, vis_dir=None):
@@ -271,8 +293,8 @@ def main(argv=None):
     parser.add_argument("--gpu", default=None, help="reference CLI parity")
     parser.add_argument("--exact", action="store_true",
                         help="per-image reference computation (no bucketing)")
-    parser.add_argument("--batch", type=int, default=4,
-                        help="cross-image bucket batch size (0/1 = per-image)")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="cross-image bucket batch size (0/1 = per-image; default 4)")
     parser.add_argument("--fetch-dtype", default="bfloat16",
                         help="dtype the logits are rounded to before host "
                              "post-processing (float32 for exact parity)")
@@ -301,12 +323,15 @@ def main(argv=None):
                         help="write a torch.profiler trace of the eval loop (CPU and "
                              "CUDA activities, Chrome trace format) into this directory")
     parser.add_argument("--spatial", type=int, default=0,
-                        help="the JAX CLI's height sharding over N chips: not ported; "
-                             "N > 1 raises")
+                        help="single-image latency mode: one engine splits each level's "
+                             "height across N devices (a bare cuda: the first N cards; "
+                             "cuda:0 or cpu: N bands on it); --devices, --batch and "
+                             "--device-pyramid are ignored")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = parser.parse_args(argv)
-    refuse_spatial(args.spatial, "--spatial")
+    batch_explicit = args.batch is not None
+    batch = args.batch if batch_explicit else 4
     # parse_odgt slices only when both indices are >= 0.
     if (args.start_idx >= 0) != (args.end_idx >= 0):
         if args.start_idx >= 0:
@@ -320,23 +345,30 @@ def main(argv=None):
         cfg.merge_from_list(args.opts)
     if args.bucket_step:
         cfg.TPU.eval_bucket_step = args.bucket_step
-    refuse_spatial(cfg.TPU.spatial)
     resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
 
     logger = setup_logger()
     # Visualization needs host pyramids (batched_predict), which the
-    # device-pyramid mode leaves empty.
-    device_pyramid = (args.device_pyramid and args.batch > 1 and not args.exact
-                      and not cfg.VAL.visualize)
-    if args.device_pyramid and not device_pyramid:
+    # device-pyramid mode leaves empty; --spatial builds a per-image engine.
+    device_pyramid = (args.device_pyramid and batch > 1 and not args.exact
+                      and not cfg.VAL.visualize and args.spatial <= 1)
+    if args.device_pyramid and not device_pyramid and args.spatial <= 1:
         logger.warning("--device-pyramid ignored (requires --batch > 1, no --exact, "
                        "and VAL.visualize False)")
+    if args.spatial > 1 and ((batch > 1 and batch_explicit) or args.device_pyramid):
+        # Only for flags the user passed: --batch defaults to 4.
+        logger.warning("--spatial is a single-image latency mode: --batch/--device-pyramid "
+                       "are ignored")
     engines = build_engines(
-        cfg, args.devices, exact=args.exact, batch=args.batch,
+        cfg, args.devices, exact=args.exact, batch=batch,
         fetch_dtype=None if args.exact else args.fetch_dtype,
         pack_buckets=args.pack_buckets, device_pyramid=device_pyramid, device=args.device,
+        spatial=args.spatial,
     )
-    if len(engines) > 1 or args.devices > 1:
+    if args.spatial > 1:
+        logger.info("one engine, each level's height split across "
+                    f"{', '.join(map(str, engines[0].spatial_devices))}")
+    elif len(engines) > 1 or args.devices > 1:
         logger.info(f"{len(engines)} engine(s) on {', '.join(str(e.device) for e in engines)}")
     loader = make_loader(cfg, engines, exact=args.exact, device_pyramid=device_pyramid,
                          start_idx=args.start_idx, end_idx=args.end_idx)

@@ -36,7 +36,8 @@ Runs on the card unless ``--device cpu``. ``--profile DIR`` writes a
 each ResNet block's activations in the backward
 (``models.resnet.ResBlock``); ``TPU.train_fast_decode`` decodes training
 JPEGs at a reduced scale (``data.TrainDataset``). ``TPU.spatial`` > 1 (the
-JAX package's height sharding) is not ported and raises.
+JAX trainer's hybrid data x height mesh) is not ported and raises; the
+eval half of the height split is ``cli.eval --spatial``.
 """
 
 from __future__ import annotations
@@ -61,7 +62,6 @@ from semseg_tpu_torch.checkpoint import (
 from semseg_tpu_torch.config import cfg as _default_cfg
 from semseg_tpu_torch.data import TrainDataset, TrainLoader
 from semseg_tpu_torch.models import ModelBuilder
-from semseg_tpu_torch.models.builder import refuse_spatial
 from semseg_tpu_torch.parallel import (
     create_train_state,
     current_lrs,
@@ -303,6 +303,17 @@ def parse_args(argv=None):
     if args.gpus and not args.devices:
         args.devices = len(parse_devices(args.gpus))
     return args
+
+
+def refuse_spatial(spatial: int) -> None:
+    """``TPU.spatial`` > 1 (``semseg_tpu/cli/train.py:41-69``: each image's
+    height sharded over a hybrid data x spatial mesh) is not ported: raise
+    rather than train without it."""
+    if spatial > 1:
+        raise NotImplementedError(
+            f"TPU.spatial {spatial}: training with each image's height split across cards "
+            "is not ported yet (ROADMAP item 17b; cli.eval --spatial runs the eval half); "
+            "leave it at 1 (data parallelism: --devices)")
 
 
 def main(argv=None):

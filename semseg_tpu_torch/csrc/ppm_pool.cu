@@ -79,6 +79,19 @@
 // sample's segments exits. Extents are clamped to the canvas and a bin's
 // area to at least 1, so an empty extent (no segments) pools to 0.
 //
+// Band form (ppm_pool_band_launch), for a map whose rows are split across
+// devices (cli.eval --spatial; the JAX package lets GSPMD shard the pool's
+// input by height): x holds rows [row0, row0 + hb) of an H-row map, and
+// the kernel writes, for each of the 50 bins over sample n's valid extent,
+// the f32 SUM of the bin's elements that lie in those rows, (N, 50, C) in
+// the order scale 1, 2, 3, 6 and (i, j) row-major. The caller adds the
+// bands' sums and divides by the bin areas. The segments are the whole
+// extent's (from H, not hb); pass 1 clips each row segment to the band's
+// rows, so a cell outside the band sums nothing and writes 0, and pass 2
+// adds the cells as it does for the other forms but writes sums, not
+// means. It reads only the band's rows inside the extent: bound by those
+// bytes, like the pad-aware form.
+//
 // Backward (ppm_pool_backward_kernel), for training through the dense
 // form: grad_x[n, h, w, c] = sum over the scales s and the bins (i, j) of
 // s that hold (h, w) of g_s[n, i, j, c] / area_s(i, j), summed in f32 in
@@ -109,6 +122,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -245,12 +259,13 @@ __device__ __forceinline__ void extent(const int* __restrict__ valid_hw,
   }
 }
 
-// Pass 1: block (cell, channel tile, sample), 32 x kWarps threads.
-template <typename T, bool kValid, bool kVec>
+// Pass 1: block (cell, channel tile, sample), 32 x kWarps threads. In the
+// band form (kBand) x holds rows [row0, row0 + hb) of the h-row map.
+template <typename T, bool kValid, bool kVec, bool kBand>
 __global__ void __launch_bounds__(32 * kWarps)
 ppm_cells_kernel(const T* __restrict__ x, const int* __restrict__ valid_hw,
                  float* __restrict__ scratch, int h, int w, int c,
-                 int grid_cs, int rs, int cs) {
+                 int grid_cs, int rs, int cs, int row0, int hb) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kTile = 32 * V;
   __shared__ int rb[kCands], cb[kCands], nseg[2];
@@ -270,13 +285,18 @@ ppm_cells_kernel(const T* __restrict__ x, const int* __restrict__ valid_hw,
   const int a = blockIdx.x / grid_cs, b = blockIdx.x % grid_cs;
   if (a >= nseg[0] || b >= nseg[1]) return;  // the same for the whole block
 
-  const int r0 = rb[a], c0 = cb[b];
+  int r0 = rb[a], r1 = rb[a + 1];
+  if constexpr (kBand) {  // the segment's rows inside the band, maybe none
+    r0 = min(max(r0, row0), row0 + hb);
+    r1 = max(min(r1, row0 + hb), r0);
+  }
+  const int c0 = cb[b];
   const int cw = cb[b + 1] - c0;
-  const int pixels = (rb[a + 1] - r0) * cw;
+  const int pixels = (r1 - r0) * cw;
   const int tile0 = blockIdx.y * kTile;
   const size_t row_stride = (size_t)w * c;
-  const T* base = x + ((size_t)n * h + r0) * row_stride + (size_t)c0 * c + tile0 +
-                  (kVec ? tx * V : tx);
+  const T* base = x + ((size_t)n * (kBand ? hb : h) + (r0 - (kBand ? row0 : 0))) * row_stride +
+                  (size_t)c0 * c + tile0 + (kVec ? tx * V : tx);
 
   float acc[V];
 #pragma unroll
@@ -345,10 +365,19 @@ ppm_cells_kernel(const T* __restrict__ x, const int* __restrict__ valid_hw,
   }
 }
 
+// 1 / area of each of the 50 bins (scale 1, 2, 3, 6; (i, j) row-major).
+struct BinInv {
+  float v[50];
+};
+__host__ __device__ constexpr int first_bin(int s) {
+  return s == 1 ? 0 : s == 2 ? 1 : s == 3 ? 5 : 14;
+}
+
 // Bin means of one row bin kr (scale S) and 32 channels: the sums over
 // the row segments of kr of each column bin of scale S, from shared
-// memory, every load issued before the adds.
-template <int S, typename T>
+// memory, every load issued before the adds. With kBand, the sums
+// themselves, into bin first_bin(S) + i * S + j of an (N, 50, C) f32 out.
+template <int S, typename T, bool kBand>
 __device__ __forceinline__ void row_bin_means(
     float (*colsum)[kCands][32], int (*rspan)[2], int kr, int n,
     int vh, int vw, int c, int ch, T* __restrict__ out) {
@@ -367,6 +396,12 @@ __device__ __forceinline__ void row_bin_means(
     }
   }
   if (ch >= c) return;
+  if constexpr (kBand) {
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      out[((size_t)n * 50 + first_bin(S) + i * S + j) * c + ch] = sum[j];
+    return;
+  }
   const int rows = bin_end(i, vh, S) - bin_start(i, vh, S);
 #pragma unroll
   for (int j = 0; j < S; ++j) {
@@ -382,7 +417,8 @@ __device__ __forceinline__ void row_bin_means(
 // runs in a fixed order over the segments, and every loop is unrolled
 // to the most segments, with the ones outside a bin adding 0, so that
 // the loads overlap.
-template <typename T, bool kValid>
+// With kBand, T is float and o1 the (N, 50, C) sums (o2-o6 unused).
+template <typename T, bool kValid, bool kBand>
 __global__ void __launch_bounds__(32 * kCands)
 ppm_combine_kernel(const float* __restrict__ scratch,
                    const int* __restrict__ valid_hw, T* __restrict__ o1,
@@ -424,40 +460,45 @@ ppm_combine_kernel(const float* __restrict__ scratch,
 
   const int kr = wy;
   if (kr < 1)
-    row_bin_means<1>(colsum, rspan, kr, n, vh, vw, c, ch, static_cast<T*>(o1));
+    row_bin_means<1, T, kBand>(colsum, rspan, kr, n, vh, vw, c, ch, o1);
   else if (kr < 3)
-    row_bin_means<2>(colsum, rspan, kr, n, vh, vw, c, ch, static_cast<T*>(o2));
+    row_bin_means<2, T, kBand>(colsum, rspan, kr, n, vh, vw, c, ch, kBand ? o1 : o2);
   else if (kr < 6)
-    row_bin_means<3>(colsum, rspan, kr, n, vh, vw, c, ch, static_cast<T*>(o3));
+    row_bin_means<3, T, kBand>(colsum, rspan, kr, n, vh, vw, c, ch, kBand ? o1 : o3);
   else
-    row_bin_means<6>(colsum, rspan, kr, n, vh, vw, c, ch, static_cast<T*>(o6));
+    row_bin_means<6, T, kBand>(colsum, rspan, kr, n, vh, vw, c, ch, kBand ? o1 : o6);
 }
 
-template <typename T, bool kValid, bool kVec>
+template <typename T, bool kValid, bool kVec, bool kBand>
 cudaError_t launch_cells(const T* x, float* scratch, const int* valid_hw,
-                         int n, int h, int w, int c, int rs, int cs,
-                         cudaStream_t stream) {
+                         int n, int h, int w, int c, int rs, int cs, int row0,
+                         int hb, cudaStream_t stream) {
   constexpr int kTile = 32 * (16 / sizeof(T));
   // Dense: exactly the map's cells. Valid: room for any extent's cells.
   const int grid_rs = kValid ? rs : num_segments(h);
   const int grid_cs = kValid ? cs : num_segments(w);
   dim3 grid(grid_rs * grid_cs, (c + kTile - 1) / kTile, n);
-  ppm_cells_kernel<T, kValid, kVec><<<grid, dim3(32, kWarps), 0, stream>>>(
-      x, valid_hw, scratch, h, w, c, grid_cs, rs, cs);
+  ppm_cells_kernel<T, kValid, kVec, kBand><<<grid, dim3(32, kWarps), 0, stream>>>(
+      x, valid_hw, scratch, h, w, c, grid_cs, rs, cs, row0, hb);
   return cudaGetLastError();
 }
 
-template <typename T, bool kValid>
+// Both passes. The band form (kBand: kValid too) reads rows [row0, row0 +
+// hb) of an h-row map from x and writes the (N, 50, C) f32 sums to o1.
+template <typename T, bool kValid, bool kBand = false>
 cudaError_t launch(const void* xv, void* o1, void* o2, void* o3, void* o6,
                    float* scratch, const int* valid_hw, int n, int h, int w,
-                   int c, cudaStream_t stream) {
+                   int c, cudaStream_t stream, int row0 = 0, int hb = 0) {
+  using Out = typename std::conditional<kBand, float, T>::type;
   const T* x = static_cast<const T*>(xv);
   const int rs = max_segments(h), cs = max_segments(w);
   constexpr int V = 16 / sizeof(T);
   const bool vec = c % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaError_t err =
-      vec ? launch_cells<T, kValid, true>(x, scratch, valid_hw, n, h, w, c, rs, cs, stream)
-          : launch_cells<T, kValid, false>(x, scratch, valid_hw, n, h, w, c, rs, cs, stream);
+      vec ? launch_cells<T, kValid, true, kBand>(x, scratch, valid_hw, n, h, w, c, rs, cs,
+                                                 row0, hb, stream)
+          : launch_cells<T, kValid, false, kBand>(x, scratch, valid_hw, n, h, w, c, rs, cs,
+                                                  row0, hb, stream);
   if (err != cudaSuccess) return err;
   // Pass 2 is launched as a programmatic dependent of pass 1: its blocks
   // may be scheduled while pass 1 drains, and wait inside the kernel
@@ -471,9 +512,10 @@ cudaError_t launch(const void* xv, void* o1, void* o2, void* o3, void* o6,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, ppm_combine_kernel<T, kValid>, (const float*)scratch,
-                           valid_hw, static_cast<T*>(o1), static_cast<T*>(o2),
-                           static_cast<T*>(o3), static_cast<T*>(o6), h, w, c, rs, cs);
+  err = cudaLaunchKernelEx(&cfg, ppm_combine_kernel<Out, kValid, kBand>,
+                           (const float*)scratch, valid_hw, static_cast<Out*>(o1),
+                           static_cast<Out*>(o2), static_cast<Out*>(o3),
+                           static_cast<Out*>(o6), h, w, c, rs, cs);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -491,14 +533,6 @@ __device__ __forceinline__ void unpack16(uint4 q, float (&f)[8]) {
     f[2 * k] = __uint_as_float(u[k] << 16);
     f[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
   }
-}
-
-// 1 / area of each of the 50 bins (scale 1, 2, 3, 6; (i, j) row-major).
-struct BinInv {
-  float v[50];
-};
-__host__ __device__ constexpr int first_bin(int s) {
-  return s == 1 ? 0 : s == 2 ? 1 : s == 3 ? 5 : 14;
 }
 
 // The gradient of one cell for this thread's V channels, from scale S's
@@ -663,6 +697,28 @@ int ppm_pool_launch(const void* x, void* o1, void* o2, void* o3, void* o6,
     return (int)launch<bf16, false>(x, o1, o2, o3, o6, sc, v, n, h, w, c, s);
   if (dtype == 1)
     return (int)launch<bf16, true>(x, o1, o2, o3, o6, sc, v, n, h, w, c, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Band form: x is rows [row0, row0 + hb) of an (N, H, W, C) map,
+// contiguous; valid_hw the (N, 2) int32 device array of extents; sums the
+// (N, 50, C) f32 result; scratch ppm_pool_scratch_floats(n, h, w, c)
+// floats. Returns the cudaError_t of the launches.
+int ppm_pool_band_launch(const void* x, void* sums, void* scratch, const void* valid_hw,
+                         int n, int hb, int w, int c, int h, int row0, int dtype,
+                         void* stream) {
+  if (n <= 0 || hb <= 0 || w <= 0 || c <= 0 || row0 < 0 || row0 + hb > h ||
+      valid_hw == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  const int* v = static_cast<const int*>(valid_hw);
+  if (dtype == 0)
+    return (int)launch<float, true, true>(x, sums, nullptr, nullptr, nullptr, sc, v, n, h,
+                                          w, c, s, row0, hb);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, true, true>(x, sums, nullptr, nullptr, nullptr, sc, v,
+                                                  n, h, w, c, s, row0, hb);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,7 +10,10 @@
   with the padding zeroed, and run to logits at decoder resolution with
   pad-aware pooling. The valid region is cropped, resized to label size and
   soft-maxed on the device (the JAX package does that last step on the host
-  with cv2).
+  with cv2). With ``spatial_devices`` (``cli.eval --spatial``, JAX's
+  ``spatial_mesh``) each level's height is split across those devices, one
+  band each (``parallel/spatial.py``), and the logits gathered on the
+  first.
 * ``BatchedInferenceEngine`` batches same-bucket levels ACROSS images,
   optionally folding under-filled buckets into larger ones, and keeps one
   f32 score canvas per image on the device: resize, softmax and the sum
@@ -28,6 +31,7 @@ package; model tensors are NCHW and channels_last in memory.
 
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 from typing import Sequence
@@ -45,6 +49,8 @@ from semseg_tpu_torch.data.transforms import (
 from semseg_tpu_torch.ops.preproc import normalize_255, normalize_u8_masked, valid_mask
 from semseg_tpu_torch.ops.resize import resize_bilinear
 from semseg_tpu_torch.ops.resize_dynamic import pil_resize_matrix, resize_matrix
+from semseg_tpu_torch.models.segmentation import banded_logits, check_banded
+from semseg_tpu_torch.parallel.spatial import BandPlan, Bands, gather, split_rows
 from semseg_tpu_torch.upload import Upload
 
 
@@ -54,14 +60,50 @@ def _fetch_dtype(dtype) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
+def band_device(device) -> torch.device:
+    """A spatial band's device, which must exist: raises for a card index
+    past the visible ones or when no card is visible."""
+    d = torch.device(device)
+    if d.type == "cuda":
+        count = torch.cuda.device_count()
+        index = torch.cuda.current_device() if d.index is None and count else d.index
+        if not count or index >= count:
+            raise ValueError(f"spatial band device {device}: {count} CUDA card(s) visible")
+        return torch.device("cuda", index)
+    if d.type != "cpu":
+        raise ValueError(f"spatial band device {device}: not a CUDA card or the CPU")
+    return d
+
+
 class InferenceEngine:
+    """The exact and the bucketed per-image engines (module docstring).
+
+    ``spatial_devices``: the bucketed engine splits each level's height
+    across these devices (a device may repeat: its bands are then slices),
+    as the JAX engine does over its ``spatial_mesh``; ``device`` is then the
+    first of them, which holds ``model`` and runs the exact engine and the
+    post-processing. The model is copied to each other device once.
+    """
+
     def __init__(self, model, *, num_class: int = 150, device="cuda",
                  exact: bool = True, output_stride: int = 8,
                  bucket_step: int = 64, padding_constant: int = 1,
-                 fetch_dtype=None):
+                 fetch_dtype=None, spatial_devices=None):
         self.model = model
         self.num_class = num_class
         self.device = torch.device(device)
+        self.spatial_devices = None
+        if spatial_devices:
+            self.spatial_devices = [band_device(d) for d in spatial_devices]
+            self.device = self.spatial_devices[0]
+            if not exact:
+                check_banded(model)
+                # One copy of the model per distinct device, as the JAX
+                # engine replicates its variables over the mesh.
+                self._replicas = {self.device: model}
+                for d in self.spatial_devices:
+                    if d not in self._replicas:
+                        self._replicas[d] = copy.deepcopy(model).to(d)
         self.exact = exact
         self.output_stride = output_stride
         # The dataset's lattice rule, so level shapes keep the model's
@@ -97,6 +139,23 @@ class InferenceEngine:
         out = self.model(x.permute(0, 3, 1, 2), valid_hw=hw)
         return out.to(self.fetch_dtype) if to_fetch else out
 
+    def _logits_spatial(self, img_u8: torch.Tensor, hw: torch.Tensor) -> torch.Tensor:
+        """``_logits_raw_fn`` with the level's height split across
+        ``spatial_devices``: each band's rows of the uint8 canvas go to its
+        device and are normalized there (the valid mask at the band's row
+        offset), the banded forward runs, and the logit bands are gathered
+        on the first device and rounded to ``fetch_dtype``."""
+        hp, wp = img_u8.shape[1:3]
+        plan = BandPlan(hp, len(self.spatial_devices))
+        devices = self.spatial_devices[:plan.count]
+        hws = [hw.to(d, non_blocking=True) for d in devices]
+        img = split_rows(img_u8.permute(0, 3, 1, 2), plan, devices)
+        x = Bands([normalize_u8_masked(p.permute(0, 2, 3, 1), v[:, 0] - r0, v[:, 1])
+                   .permute(0, 3, 1, 2) for (r0, _), p, v in zip(img.rows, img.parts, hws)],
+                  plan, 1)
+        logits = banded_logits([self._replicas[d] for d in devices], x, hws, (hp, wp))
+        return gather(logits, self.device).to(self.fetch_dtype)
+
     def _postprocess(self, logits: torch.Tensor, h: int, w: int, seg_size) -> torch.Tensor:
         """(C, hp, wp) logits → (C, H, W) f32 probabilities at ``seg_size``:
         crop the valid region, bilinear resize (align_corners=False),
@@ -114,6 +173,10 @@ class InferenceEngine:
         acc = torch.zeros((self.num_class, *seg_size), dtype=torch.float32,
                           device=self.device)
         if self.exact:
+            # With spatial_devices this runs unsplit on the first of them, as
+            # the JAX engine's exact path runs replicated over its mesh
+            # (semseg_tpu/engine.py:239-242 leaves the float image
+            # uncommitted).
             for img in pyramid:
                 acc += self.model(self._to_device(img), tuple(seg_size))[0]
             return acc / len(pyramid)
@@ -131,8 +194,9 @@ class InferenceEngine:
             hws.append(np.array([[h, w]], np.int32))
         dev = Upload.of(padded + hws, self.device).send().get()
         n = len(pyramid)
+        forward = self._logits_raw_fn if self.spatial_devices is None else self._logits_spatial
         for img, hw, (h, w) in zip(dev[:n], dev[n:], (a[0] for a in hws)):
-            acc += self._postprocess(self._logits_raw_fn(img, hw)[0], int(h), int(w), seg_size)
+            acc += self._postprocess(forward(img, hw)[0], int(h), int(w), seg_size)
         return acc / n
 
     def scores_for_pyramid(self, pyramid: Sequence[np.ndarray], seg_size) -> np.ndarray:

@@ -18,8 +18,8 @@ calls ``.train()``; ``weights`` loads a reference-format ``.pth`` strictly.
 ``build_model`` also sets the training forward's ``deep_sup_scale``
 (``TRAIN.deep_sup_scale`` for the ``*deepsup`` decoders) and ``fix_bn``
 (``TRAIN.fix_bn``), and ``remat`` (``TPU.remat``) on the ResNet/ResNeXt
-encoders, as JAX does (not on MobileNetV2 or HRNetV2). ``TPU.spatial`` > 1
-raises ``NotImplementedError`` (``refuse_spatial``).
+encoders, as JAX does (not on MobileNetV2 or HRNetV2). Like the JAX
+builder it does not read ``TPU.spatial`` (the trainer does).
 """
 
 from __future__ import annotations
@@ -87,16 +87,6 @@ _ENCODERS = {
 }
 
 
-def refuse_spatial(spatial: int, name: str = "TPU.spatial") -> None:
-    """``TPU.spatial`` or ``cli.eval --spatial`` > 1 (the JAX package's GSPMD
-    height sharding) is not ported: raise rather than run without it."""
-    if spatial > 1:
-        raise NotImplementedError(
-            f"{name} {spatial}: sharding each image's height across cards is not "
-            "ported yet (ROADMAP item 17); leave it at 1 (data parallelism: "
-            "--devices)")
-
-
 def _encoder(arch: str, dtype: torch.dtype, remat: bool = False) -> nn.Module:
     if arch in ("resnet34", "resnet34dilated"):
         raise NotImplementedError(arch)
@@ -156,7 +146,6 @@ class ModelBuilder:
         """The full model from a config node, weights from cfg.MODEL, the
         training forward's settings from cfg.TRAIN, ``remat`` from
         cfg.TPU."""
-        refuse_spatial(cfg.TPU.spatial)
         if dtype is None:
             dtype = getattr(torch, cfg.TPU.compute_dtype)
         generator = torch.Generator().manual_seed(seed)

@@ -24,6 +24,15 @@ it, so the global pools never ingest the canvas padding. C1 and C1DeepSup
 have no global op and ignore it; UPerNet's FPN resizes stay full-canvas, as
 in the JAX package.
 
+``banded_logits`` is the eval forward of C1, C1DeepSup, PPM and PPMDeepsup
+over a conv5 split in row bands across devices (``cli.eval --spatial``,
+``parallel/spatial.py``): the pyramid's bins are summed per band by the
+band form of the pool kernel, added on the first band's device and divided
+by the bin areas there, the branch convs run on the small grids, each band
+upsamples its own rows of them, and the 3x3 convs take their halo rows.
+UPerNet's cross-resolution resizes have no banded form yet (ROADMAP item
+17c).
+
 Slot names follow the reference: ``cbr`` and ``cbr_deepsup`` are
 ``conv3x3_bn_relu`` Sequentials; PPM's ``ppm.{i}`` is ``Sequential(pool,
 conv, BN, ReLU)`` and its ``conv_last`` ``Sequential(conv, BN, ReLU,
@@ -41,9 +50,15 @@ import torch
 from torch import nn
 
 from semseg_tpu_torch.ops.dtypes import acc_dtype
-from semseg_tpu_torch.ops.kernels.ppm_pool import SCALES, pyramid_pool
+from semseg_tpu_torch.ops.kernels.ppm_pool import (
+    SCALES,
+    band_sums_to_grids,
+    pyramid_pool,
+    pyramid_pool_band,
+)
 from semseg_tpu_torch.ops.resize import resize_bilinear
 from semseg_tpu_torch.ops.resize_dynamic import upsample_grid_valid
+from semseg_tpu_torch.parallel.spatial import Bands, run_banded
 from .layers import BatchNorm2d, Conv2d, ConvBN, Dropout2d, _Act
 
 
@@ -210,3 +225,39 @@ class UPerNet(nn.Module):
         out_hw = fpn_features[0].shape[2:]
         fusion = [fpn_features[0]] + [resize_bilinear(p, out_hw) for p in fpn_features[1:]]
         return _out(self.conv_last(torch.cat(fusion, dim=1)), seg_size)
+
+
+def _banded_ppm_trunk(decoders: Sequence[PPM], conv5: Bands, valid) -> Bands:
+    """``PPM._trunk`` with ``valid_hw`` over a banded conv5: ``valid[j]`` is
+    the (N, 2) extents on band j's device."""
+    dev0 = conv5.parts[0].device
+    hw = (conv5.height, conv5.parts[0].shape[3])
+    total = None
+    for part, v, (r0, _) in zip(conv5.parts, valid, conv5.rows):
+        sums = pyramid_pool_band(part.permute(0, 2, 3, 1).contiguous(), v, r0, hw[0])
+        sums = sums.to(dev0, non_blocking=True)
+        total = sums if total is None else total + sums
+    grids = band_sums_to_grids(total, valid[0], hw, conv5.parts[0].dtype)
+    branches = [branch[1:](g.permute(0, 3, 1, 2))
+                for branch, g in zip(decoders[0].ppm, grids)]
+    parts = []
+    for part, v, rows in zip(conv5.parts, valid, conv5.rows):
+        ups = [upsample_grid_valid(y.to(part.device, non_blocking=True).permute(0, 2, 3, 1),
+                                   hw, v, rows).permute(0, 3, 1, 2) for y in branches]
+        parts.append(torch.cat([part] + ups, dim=1))
+    return run_banded([d.conv_last for d in decoders], Bands(parts, conv5.plan, conv5.stride))
+
+
+def banded_logits(decoders, conv5: Bands, valid) -> Bands:
+    """f32 logits at decoder resolution (the eval forward with ``valid_hw``)
+    over a banded conv5; ``decoders[j]`` is band j's copy of the decoder and
+    ``valid[j]`` the (N, 2) int32 extents of conv5 on band j's device."""
+    d = decoders[0]
+    if isinstance(d, PPM):
+        x = _banded_ppm_trunk(decoders, conv5, valid)
+    elif isinstance(d, C1):
+        x = run_banded([m.cbr for m in decoders], conv5)
+        x = run_banded([m.conv_last for m in decoders], x)
+    else:  # UPerNet's cross-resolution resizes have no banded form yet
+        raise NotImplementedError(f"banded {type(d).__name__} (ROADMAP item 17c)")
+    return x.map(lambda p: p.to(acc_dtype(p.dtype)))

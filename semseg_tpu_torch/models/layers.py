@@ -61,6 +61,11 @@ class Dropout2d(nn.Module):
     the global batch, not copies of one another.
     """
 
+    # In eval each output pixel depends on its input pixel alone, so the
+    # banded forward (``parallel/spatial.run_banded``) applies the module to
+    # each band as it is.
+    ROWWISE = True
+
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
@@ -116,6 +121,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     rank recomputes the same blocks in the same order of one backward.
     """
 
+    ROWWISE = True  # in eval (see Dropout2d)
+
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.001):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.register_buffer("_running_iter", torch.ones(1))
@@ -158,6 +165,8 @@ def apply_act(x, act: Optional[str]):
 
 
 class _Act(nn.Module):
+    ROWWISE = True  # see Dropout2d
+
     def __init__(self, act: str):
         super().__init__()
         if act not in _ACTS:

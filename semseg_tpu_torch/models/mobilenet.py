@@ -12,6 +12,11 @@
   five maps of 24, 32, 64, 160 and 320 channels; C1DeepSup's
   deep-supervision branch reads ``conv_out[-2]``.
 
+``banded_conv5`` is the eval forward of an image split in row bands across
+devices (``cli.eval --spatial``, ``parallel/spatial.py``), through the same
+modules: each conv (depthwise and dilated ones included) with its halo
+rows, BN, ReLU6 and the residual add per band.
+
 Keys are the reference's: ``features.0.{0,1}`` for the stem, then
 ``features.{i}.conv.{k}`` with the block's Sequential indices (t == 1:
 depthwise 0, project 3; otherwise expand 0, depthwise 3, project 6).
@@ -19,11 +24,12 @@ depthwise 0, project 3; otherwise expand 0, depthwise 3, project 6).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
+from semseg_tpu_torch.parallel.spatial import Bands, run_banded
 from .layers import BatchNorm2d, Conv2d, ConvBN, _Act
 
 # (expand_ratio t, channels c, repeats n, stride s)
@@ -118,3 +124,17 @@ class MobileNetV2Encoder(nn.Module):
 
 def mobilenetv2dilated(**kw):
     return MobileNetV2Encoder(dilate_scale=8, **kw)
+
+
+def banded_conv5(encoders: Sequence[MobileNetV2Encoder], x: Bands) -> Bands:
+    """The last feature map of ``MobileNetV2Encoder.forward`` (eval) over an
+    image in row bands; ``encoders[j]`` is band j's copy. Output stride 8
+    only (a band plan cuts strides 1-8)."""
+    x = x.map(lambda p: p.to(encoders[0].dtype))
+    for blocks in zip(*(e.features for e in encoders)):
+        if isinstance(blocks[0], InvertedResidual):
+            out = run_banded([b.conv for b in blocks], x)
+            x = x.zip(out, torch.add) if blocks[0].use_res else out
+        else:  # the stem's ConvBN
+            x = run_banded(blocks, x)
+    return x

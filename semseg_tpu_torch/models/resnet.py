@@ -16,6 +16,11 @@ and recomputed in the backward, for less activation memory at the cost of
 a second forward through the blocks. Eval is unchanged. BN's running
 statistics advance once per forward (``layers.recomputing``).
 
+``banded_conv5`` is the eval forward of an image split in row bands across
+devices (``cli.eval --spatial``, ``parallel/spatial.py``): the same
+modules' parameters, each conv with its halo rows, BN, ReLU and the
+residual add per band.
+
 Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
 ``layer3.0.downsample.0``), so its checkpoints load as they are. The encoder
 returns the four stage outputs ``[c2, c3, c4, c5]``.
@@ -32,6 +37,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from semseg_tpu_torch.ops.pool import max_pool2d
+from semseg_tpu_torch.parallel.spatial import (
+    Bands,
+    band_apply,
+    band_conv,
+    band_max_pool,
+    run_banded,
+)
 from .layers import BatchNorm2d, Conv2d, ConvBN, recomputing
 
 EXPANSION = {"basic": 1, "bottleneck": 4, "group_bottleneck": 2}
@@ -152,6 +164,35 @@ class ResNetEncoder(nn.Module):
             x = stage(x)
             features.append(x)
         return features
+
+
+def _banded_block(blocks: Sequence[ResBlock], x: Bands) -> Bands:
+    """``ResBlock._forward`` over a banded map (``blocks[j]``: band j's copy)."""
+    def each(name):
+        return [getattr(b, name) for b in blocks]
+
+    out = band_apply(each("bn1"), band_conv(each("conv1"), x)).map(F.relu)
+    out = band_apply(each("bn2"), band_conv(each("conv2"), out))
+    if not blocks[0].basic:
+        out = band_apply(each("bn3"), band_conv(each("conv3"), out.map(F.relu)))
+    residual = x if blocks[0].downsample is None else run_banded(each("downsample"), x)
+    return out.zip(residual, lambda o, r: F.relu(o + r))
+
+
+def banded_conv5(encoders: Sequence[ResNetEncoder], x: Bands) -> Bands:
+    """conv5 of ``ResNetEncoder.forward`` (eval) over an image in row bands;
+    ``encoders[j]`` is band j's copy of the encoder. Output stride 8 only
+    (``dilate_scale=8``): a band plan cuts strides 1-8."""
+    enc = encoders[0]
+    x = x.map(lambda p: p.to(enc.dtype))
+    for i in (1, 2, 3):
+        conv = [getattr(e, f"conv{i}") for e in encoders]
+        x = band_apply([getattr(e, f"bn{i}") for e in encoders], band_conv(conv, x)).map(F.relu)
+    x = band_max_pool(x, kernel_size=3, stride=2, padding=1)
+    for stage in ("layer1", "layer2", "layer3", "layer4"):
+        for blocks in zip(*(getattr(e, stage) for e in encoders)):
+            x = _banded_block(blocks, x)
+    return x
 
 
 def resnet18(**kw):

@@ -43,20 +43,58 @@ from semseg_tpu_torch.ops.losses import (
     softmax_cross_entropy_sums,
 )
 from semseg_tpu_torch.ops.norm import all_reduce_sum
+from . import decoders, mobilenet, resnet
 from .layers import BatchNorm2d, Dropout2d
 
 
+def map_extents(valid_hw, img_hw, map_hw):
+    """(N, 2) extents of a map of ``map_hw``: ``ceil(valid / stride)`` with
+    the map's stride taken from the padded image and map shapes."""
+    sh, sw = img_hw[0] // map_hw[0], img_hw[1] // map_hw[1]
+    return torch.stack([
+        (valid_hw[:, 0] + sh - 1) // sh,
+        (valid_hw[:, 1] + sw - 1) // sw,
+    ], dim=-1).to(torch.int32).contiguous()
+
+
 def feature_extents(valid_hw, img_hw, feats):
-    """Per-feature-map (N, 2) extents: ``ceil(valid / stride)`` with each
-    map's stride taken from the padded image and map shapes."""
-    out = []
-    for f in feats:
-        sh, sw = img_hw[0] // f.shape[2], img_hw[1] // f.shape[3]
-        out.append(torch.stack([
-            (valid_hw[:, 0] + sh - 1) // sh,
-            (valid_hw[:, 1] + sw - 1) // sw,
-        ], dim=-1).to(torch.int32).contiguous())
-    return out
+    """Per-feature-map (N, 2) extents (``map_extents``)."""
+    return [map_extents(valid_hw, img_hw, f.shape[2:]) for f in feats]
+
+
+def check_banded(model: "SegmentationModel") -> None:
+    """Raises ``NotImplementedError`` unless ``model`` has a banded eval
+    forward (``banded_logits``): a dilated ResNet/ResNeXt or MobileNetV2
+    encoder (output stride 8) with a C1 or PPM decoder (or their
+    deep-supervision forms)."""
+    enc, dec = model.encoder, model.decoder
+    name = type(enc).__name__
+    ok_enc = isinstance(enc, (resnet.ResNetEncoder, mobilenet.MobileNetV2Encoder))
+    if ok_enc and enc.dilate_scale != 8:
+        ok_enc, name = False, f"{name} of output stride {enc.dilate_scale or 32}"
+    if not ok_enc or not isinstance(dec, (decoders.C1, decoders.PPM)):
+        raise NotImplementedError(
+            f"{name} + {type(dec).__name__} does not run split by height yet (ROADMAP "
+            "item 17c): HRNetV2 and UPerNet need banded cross-resolution resizes; the "
+            "dilated ResNet/ResNeXt and MobileNetV2 encoders (output stride 8) with C1 or "
+            "PPM decoders run")
+
+
+def banded_logits(models, x, valid_hw, img_hw):
+    """f32 logits at decoder resolution of ``model(img, valid_hw=...)``
+    (eval) over an image split in row bands (``parallel.spatial.Bands`` of
+    the normalised NCHW image): ``models[j]`` is band j's copy of the model
+    and ``valid_hw[j]`` the (N, 2) int32 extents on its device; ``img_hw``
+    the padded image's (H, W). Returns the logits as ``Bands``."""
+    encoders = [m.encoder for m in models]
+    check_banded(models[0])
+    if isinstance(encoders[0], resnet.ResNetEncoder):
+        conv5 = resnet.banded_conv5(encoders, x)
+    else:
+        conv5 = mobilenet.banded_conv5(encoders, x)
+    map_hw = (conv5.height, conv5.parts[0].shape[3])
+    valid = [map_extents(v, img_hw, map_hw) for v in valid_hw]
+    return decoders.banded_logits([m.decoder for m in models], conv5, valid)
 
 
 class SegmentationModel(nn.Module):

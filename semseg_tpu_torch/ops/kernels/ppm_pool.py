@@ -17,8 +17,16 @@ is ``ops.resize_dynamic.adaptive_avg_pool2d_valid`` at the four scales
 (``semseg_tpu/ops/resize_dynamic.py:70``, f32 einsums in the JAX package).
 The same kernel reads each sample's extent from the device.
 
-The three forms are registered operators, ``semseg_tpu_torch::pyramid_pool``,
-``::pyramid_pool_valid`` and ``::pyramid_pool_backward``
+Band form (``pyramid_pool_band``): for a map whose rows are split across
+devices (``cli.eval --spatial``), the kernel takes one band, rows ``[row0,
+row0 + hb)`` of an H-row map, and writes each bin's f32 SUM over the
+band's rows of the bin (over each sample's valid extent): (N, 50, C) in the
+order scale 1, 2, 3, 6 and (i, j) row-major. ``band_sums_to_grids`` adds
+the bands' sums, divides by the bin areas and rounds once, which is the
+pad-aware form's result up to the order of the sums.
+
+The four forms are registered operators, ``semseg_tpu_torch::pyramid_pool``,
+``::pyramid_pool_valid``, ``::pyramid_pool_band`` and ``::pyramid_pool_backward``
 (``torch.library.custom_op``), each with a fake implementation that gives
 its output shapes, so ``torch.export`` keeps each call as one node and an
 exported program launches the kernel (``serving.py``). The dense operator's
@@ -50,7 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from semseg_tpu_torch.ops.dtypes import acc_dtype
-from semseg_tpu_torch.ops.resize_dynamic import adaptive_avg_pool2d_valid
+from semseg_tpu_torch.ops.resize_dynamic import adaptive_avg_pool2d_valid, adaptive_pool_matrix
 
 SCALES = (1, 2, 3, 6)
 SOURCES = ("ppm_pool.cu",)
@@ -58,10 +66,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches made by the operators' CUDA implementations, eager or
 #: from an exported program (an export trace launches nothing): the dense
-#: form, the pad-aware form (``valid_hw`` given), and the dense form's
-#: backward.
+#: form, the pad-aware form (``valid_hw`` given), the band form, and the
+#: dense form's backward.
 LAUNCHES = 0
 VALID_LAUNCHES = 0
+BAND_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 # Engines on several threads (``cli.eval --devices``) launch at once.
 _COUNT_LOCK = threading.Lock()
@@ -79,6 +88,50 @@ def pyramid_pool_plain(x: torch.Tensor, scales: Sequence[int] = SCALES,
         F.adaptive_avg_pool2d(xf, s).permute(0, 2, 3, 1).to(x.dtype).contiguous()
         for s in scales
     )
+
+
+def pyramid_pool_band_plain(x: torch.Tensor, valid_hw: torch.Tensor, row0: int,
+                            h: int) -> torch.Tensor:
+    """(N, 50, C) f32 sums of band ``x`` ((N, hb, W, C), rows ``[row0, row0
+    + hb)`` of an ``h``-row map) over each bin's rows in the band, bins over
+    the extents ``valid_hw`` (clamped to the map): the rows ``[row0, row0 +
+    hb)`` of ``adaptive_pool_matrix``'s bins, as indicators, in two f32
+    products."""
+    n, hb, w, _ = x.shape
+    vh = valid_hw[:, 0].clamp(0, h)
+    vw = valid_hw[:, 1].clamp(0, w)
+    xf = x.to(torch.float32)
+    sums = []
+    for s in SCALES:
+        mh = (adaptive_pool_matrix(s, h, vh, device=x.device)[..., row0:row0 + hb] > 0)
+        mw = adaptive_pool_matrix(s, w, vw, device=x.device) > 0
+        p = torch.einsum("nik,nkwc->niwc", mh.to(torch.float32), xf)
+        sums.append(torch.einsum("njw,niwc->nijc", mw.to(torch.float32), p).reshape(n, s * s, -1))
+    return torch.cat(sums, dim=1).contiguous()
+
+
+def band_sums_to_grids(sums: torch.Tensor, valid_hw: torch.Tensor, hw: Tuple[int, int],
+                       dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+    """The four (N, s, s, C) grids in ``dtype`` from the bands' summed (N,
+    50, C) f32 sums of an ``hw`` map: each bin's sum over its area within
+    the extents ``valid_hw`` (clamped to the map, an area at least 1), on
+    the sums' device, with no host synchronisation."""
+    n = sums.shape[0]
+    vh = valid_hw[:, 0].clamp(0, hw[0]).to(torch.int64)
+    vw = valid_hw[:, 1].clamp(0, hw[1]).to(torch.int64)
+    grids, k = [], 0
+    for s in SCALES:
+        i = torch.arange(s, device=sums.device)
+
+        def extent(v):  # (N, s) bin lengths over extents v
+            v = v.view(-1, 1)
+            return (((i + 1) * v + s - 1) // s - (i * v) // s).to(torch.float32)
+
+        area = (extent(vh)[:, :, None] * extent(vw)[:, None, :]).clamp(min=1.0)
+        mean = sums[:, k:k + s * s].view(n, s, s, -1) / area[..., None]
+        grids.append(mean.to(dtype).contiguous())
+        k += s * s
+    return tuple(grids)
 
 
 def bin_bounds(i: int, size: int, s: int) -> Tuple[int, int]:
@@ -123,6 +176,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     if hasattr(lib, "ppm_pool_backward_launch"):  # an older source has none
         lib.ppm_pool_backward_launch.argtypes = [vp] * 5 + [ci] * 5 + [vp]
         lib.ppm_pool_backward_launch.restype = ci
+    if hasattr(lib, "ppm_pool_band_launch"):
+        lib.ppm_pool_band_launch.argtypes = [vp] * 4 + [ci] * 7 + [vp]
+        lib.ppm_pool_band_launch.restype = ci
     return lib
 
 
@@ -149,6 +205,25 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ppm_pool kernel launch failed: cudaError {err}")
     return tuple(outs)
+
+
+def launch_band(lib: ctypes.CDLL, x: torch.Tensor, valid_hw: torch.Tensor, row0: int,
+                h: int) -> torch.Tensor:
+    """One launch of ``lib``'s band form on checked CUDA inputs, uncounted;
+    returns the (N, 50, C) f32 sums."""
+    n, hb, w, c = x.shape
+    sums = torch.empty((n, 50, c), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(int(lib.ppm_pool_scratch_floats(n, h, w, c)),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ppm_pool_band_launch(
+            x.data_ptr(), sums.data_ptr(), scratch.data_ptr(), valid_hw.data_ptr(),
+            n, hb, w, c, h, row0, _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ppm_pool band kernel launch failed: cudaError {err}")
+    return sums
 
 
 def launch_backward(lib: ctypes.CDLL, grads: Sequence[torch.Tensor],
@@ -191,6 +266,14 @@ def _check(x: torch.Tensor, valid_hw: Optional[torch.Tensor] = None) -> None:
             f"on {x.device}; got {tuple(valid_hw.shape)} {valid_hw.dtype} on "
             f"{valid_hw.device}"
         )
+
+
+def _check_band(x: torch.Tensor, valid_hw: torch.Tensor, row0: int, h: int) -> None:
+    _check(x, valid_hw)
+    hb = x.shape[1]
+    if hb < 1 or row0 < 0 or row0 + hb > h or h >= 2**31:
+        raise ValueError(f"pyramid_pool_band: rows [{row0}, {row0 + hb}) are not a "
+                         f"non-empty band of a {h}-row map")
 
 
 def _check_grads(grads: Sequence[torch.Tensor]) -> None:
@@ -246,6 +329,22 @@ def _valid_cuda(x, valid_hw):
     return outs
 
 
+@torch.library.custom_op("semseg_tpu_torch::pyramid_pool_band", mutates_args=(),
+                         device_types="cpu")
+def _band_op(x: torch.Tensor, valid_hw: torch.Tensor, row0: int, h: int) -> torch.Tensor:
+    return pyramid_pool_band_plain(x, valid_hw, row0, h)
+
+
+@_band_op.register_kernel("cuda")
+def _band_cuda(x, valid_hw, row0, h):
+    global BAND_LAUNCHES
+    _check_band(x, valid_hw, row0, h)
+    sums = launch_band(_lib(), x, valid_hw, row0, h)
+    with _COUNT_LOCK:
+        BAND_LAUNCHES += 1
+    return sums
+
+
 @torch.library.custom_op("semseg_tpu_torch::pyramid_pool_backward", mutates_args=(),
                          device_types="cpu")
 def _backward_op(grads: List[torch.Tensor], h: int, w: int) -> torch.Tensor:
@@ -264,6 +363,8 @@ def _backward_cuda(grads, h, w):
 
 _dense_op.register_fake(_grids_like)
 _valid_op.register_fake(lambda x, valid_hw: _grids_like(x))
+_band_op.register_fake(
+    lambda x, valid_hw, row0, h: x.new_empty((x.shape[0], 50, x.shape[3]), dtype=torch.float32))
 
 
 @_backward_op.register_fake
@@ -309,3 +410,21 @@ def pyramid_pool(
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"pyramid_pool: unsupported device {x.device}")
     return _dense_op(x) if valid_hw is None else _valid_op(x, valid_hw)
+
+
+def pyramid_pool_band(x: torch.Tensor, valid_hw: torch.Tensor, row0: int,
+                      h: int) -> torch.Tensor:
+    """The band form: (N, 50, C) f32 sums of each bin's elements in rows
+    ``[row0, row0 + hb)`` of an ``h``-row map, of which ``x`` (N, hb, W, C)
+    holds those rows; bins over each sample's extent ``valid_hw`` ((N, 2)
+    int32). ``band_sums_to_grids`` turns the bands' summed sums into the
+    four grids. Inference only. On a CUDA tensor ``x`` must be float32 or
+    bfloat16 and NHWC-contiguous, and ``valid_hw`` a contiguous int32
+    tensor on the same card; the kernel runs on the current stream and
+    nothing is synchronised.
+    """
+    if x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("pyramid_pool_band has no gradient (inference only)")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pyramid_pool_band: unsupported device {x.device}")
+    return _band_op(x, valid_hw, int(row0), int(h))

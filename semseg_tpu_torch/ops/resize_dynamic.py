@@ -106,20 +106,31 @@ def adaptive_avg_pool2d_valid(x: torch.Tensor, output_size,
     return torch.einsum("njw,niwc->nijc", mw, p).to(x.dtype)
 
 
-def upsample_grid_valid(p: torch.Tensor, out_hw, valid_hw: torch.Tensor) -> torch.Tensor:
+def upsample_grid_valid(p: torch.Tensor, out_hw, valid_hw: torch.Tensor,
+                        rows=None) -> torch.Tensor:
     """Bilinear-upsample a pooled (N, s, s, C) grid onto the valid region of
     an (N, H_pad, W_pad, C) canvas, zero beyond it; NHWC-contiguous.
 
     Matches ``F.interpolate(grid, (h, w), bilinear, align_corners=False)``
-    on the unpadded map (reference models.py:417-421).
+    on the unpadded map (reference models.py:417-421). With ``rows`` =
+    ``(r0, r1)`` only those rows of the canvas, for a band of a map split
+    by height (``parallel/spatial.py``): the same rows of the bilinear
+    matrix and of the mask.
     """
     hp, wp = out_hw
+    r0, r1 = (0, hp) if rows is None else rows
     _, gh, gw, _ = p.shape
-    mh = resize_matrix(hp, gh, valid_hw[:, 0], gh, device=p.device)
+    mh = resize_matrix(hp, gh, valid_hw[:, 0], gh, device=p.device)[..., r0:r1, :]
     mw = resize_matrix(wp, gw, valid_hw[:, 1], gw, device=p.device)
-    r = torch.einsum("nik,nkwc->niwc", mh, p.to(torch.float32))
+    # Over the grid's rows as a sum in a fixed order (at most 6 terms), so
+    # that a band's rows are bit-equal to the whole map's (a product over
+    # fewer rows may round apart).
+    pf = p.to(torch.float32)
+    r = mh[:, :, 0, None, None] * pf[:, None, 0]
+    for k in range(1, gh):
+        r = r + mh[:, :, k, None, None] * pf[:, None, k]
     r = torch.einsum("njw,niwc->nijc", mw, r)
-    ii = torch.arange(hp, device=p.device).view(1, hp, 1, 1)
+    ii = torch.arange(r0, r1, device=p.device).view(1, r1 - r0, 1, 1)
     jj = torch.arange(wp, device=p.device).view(1, 1, wp, 1)
     inside = (ii < valid_hw[:, 0].view(-1, 1, 1, 1)) & (jj < valid_hw[:, 1].view(-1, 1, 1, 1))
     return torch.where(inside, r, 0.0).to(p.dtype).contiguous()

@@ -7,9 +7,11 @@
   and the port 8 cards (``torch.cuda.device_count`` patched), and each case
   must give both the same count; with ``--device cpu`` and no number the
   port trains in one process.
-* ``TPU.spatial`` > 1 and ``cli.eval --spatial`` > 1 raise a clear
-  ``NotImplementedError`` (the height sharding is not ported) in
-  ``cli.train``, ``cli.eval`` and ``ModelBuilder``.
+* ``TPU.spatial`` > 1 is read where the JAX package reads it: ``cli.train``
+  raises a clear ``NotImplementedError`` (the training half of the height
+  split is not ported, ROADMAP item 17b); ``cli.eval`` and ``ModelBuilder``
+  ignore it, as JAX's do; ``cli.eval --spatial 2 --device cpu`` runs one
+  engine over two CPU bands.
 * ``cli.eval --profile DIR`` writes a Chrome trace of the eval loop, when
   the loop ends and when it raises.
 """
@@ -68,20 +70,39 @@ def test_gpus_list_sizes_the_ranks(monkeypatch):
 
 
 @pytest.mark.parametrize("where", ["train", "eval", "eval --spatial", "builder"])
-def test_spatial_raises(where, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        if where == "train":
+def test_spatial_raises(where, tmp_path, train_set, monkeypatch):  # noqa: F811
+    """Only ``cli.train`` raises on ``TPU.spatial`` 2 (JAX's trainer is the
+    one reader); the rest behave as the JAX package's."""
+    if where == "train":
+        with pytest.raises(NotImplementedError, match="ROADMAP item 17b"):
             train_cli.main(["--cfg", CFG18, "--device", "cpu", "DIR", str(tmp_path),
                             "TPU.spatial", "2"])
-        elif where == "eval":
-            eval_cli.main(["--cfg", CFG18, "--device", "cpu", "TPU.spatial", "2"])
-        elif where == "eval --spatial":
-            eval_cli.main(["--cfg", CFG18, "--device", "cpu", "--spatial", "2"])
-        else:
-            c = cfg.clone()
-            c.merge_from_file(CFG18)
-            c.TPU.spatial = 2
-            ModelBuilder.build_model(c, device="cpu")
+        return
+    c = cfg.clone()
+    c.merge_from_file(CFG18)
+    c.TPU.spatial = 2
+    model = ModelBuilder.build_model(c, device="cpu")
+    if where == "builder":
+        assert not model.training and next(model.parameters()).device.type == "cpu"
+        return
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    for part in ("encoder", "decoder"):
+        torch.save(getattr(model, part).state_dict(), ckpt / f"{part}_epoch_20.pth")
+    root, odgt = train_set
+    built = []
+    real = eval_cli.build_engines
+    monkeypatch.setattr(eval_cli, "build_engines",
+                        lambda *a, **k: built.extend(real(*a, **k)) or built)
+    flags = ["--spatial", "2"] if where == "eval --spatial" else ["--batch", "1"]
+    miou, _, _, raw = eval_cli.main([
+        "--cfg", CFG18, "--device", "cpu", *flags, "DIR", str(ckpt), "TPU.spatial", "2",
+        "DATASET.root_dataset", root, "DATASET.list_val", odgt,
+        "DATASET.imgSizes", "(40,)", "DATASET.imgMaxSize", "64"])
+    (engine,) = built
+    assert raw["pix_count"] > 0 and 0.0 <= miou <= 1.0
+    want = [torch.device("cpu")] * 2 if where == "eval --spatial" else None
+    assert engine.spatial_devices == want
 
 
 def test_eval_profile_writes_a_trace_on_either_exit(train_set, tmp_path, monkeypatch):  # noqa: F811

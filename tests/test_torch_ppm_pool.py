@@ -5,8 +5,9 @@ against JAX ``pyramid_pool(..., interpret=True)`` and against four
 ``ops.adaptive_avg_pool2d`` calls. float32 within atol 1e-5 (summation
 order); bfloat16 compared in float32 within rtol 8e-3, one bf16 ulp, since
 each side rounds its f32 mean once. The pad-aware form (``valid_hw``) is
-held against JAX ``adaptive_avg_pool2d_valid`` at the four scales. The three
-registered operators pass ``torch.library.opcheck`` on the CPU. The CUDA
+held against JAX ``adaptive_avg_pool2d_valid`` at the four scales. The four
+registered operators pass ``torch.library.opcheck`` on the CPU (the band
+form is held to the pad-aware form in ``test_torch_spatial_ops.py``). The CUDA
 kernel is held against the plain version on the card by the tests marked
 ``cuda``; JAX is imported inside the tests that use it, so that this file
 also runs where only PyTorch is installed (see README).
@@ -107,11 +108,13 @@ def _opcheck_cases(device="cpu"):
         "dense": (torch.ops.semseg_tpu_torch.pyramid_pool, (x,)),
         "dense_grad": (torch.ops.semseg_tpu_torch.pyramid_pool, (x.clone().requires_grad_(),)),
         "valid": (torch.ops.semseg_tpu_torch.pyramid_pool_valid, (x, v)),
+        "band": (torch.ops.semseg_tpu_torch.pyramid_pool_band,
+                 (x[:, 4:9].contiguous(), v, 4, 13)),
         "backward": (torch.ops.semseg_tpu_torch.pyramid_pool_backward, (grads, 13, 17)),
     }
 
 
-@pytest.mark.parametrize("case", ["dense", "dense_grad", "valid", "backward"])
+@pytest.mark.parametrize("case", ["dense", "dense_grad", "valid", "band", "backward"])
 def test_registered_op_passes_opcheck(case):
     """The registered operators (what ``torch.export`` records and an
     exported program calls) on the CPU: schema, fake implementation
@@ -122,7 +125,7 @@ def test_registered_op_passes_opcheck(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["dense", "dense_grad", "valid", "backward"])
+@pytest.mark.parametrize("case", ["dense", "dense_grad", "valid", "band", "backward"])
 def test_registered_op_passes_opcheck_on_card(case):
     """The same checks against the CUDA implementations (the kernels)."""
     if not torch.cuda.is_available():
@@ -183,6 +186,40 @@ def test_valid_kernel_matches_plain_on_card(shape, extents, dtype):
     # mean cancels to nearly 0 (its relative error is then unbounded).
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=8e-3)
     for o, p in zip(outs, ppm_pool.pyramid_pool_plain(x, valid_hw=v)):
+        torch.testing.assert_close(o.float(), p.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,extents,cuts", [
+    ((1, 75, 100, 2048), [[75, 100]], [0, 38, 75]),
+    ((1, 75, 100, 2048), [[75, 100]], [0, 19, 38, 57, 75]),
+    ((3, 13, 17, 250), [[13, 17], [7, 9], [0, 0]], [0, 1, 2, 7, 8, 13]),
+    ((2, 38, 50, 2048), [[38, 50], [21, 33]], [0, 5, 30, 38]),
+], ids=["2-bands", "4-bands", "odd-C-1-row-bands-empty-extent", "bins-straddle"])
+def test_band_kernel_matches_plain_on_card(shape, extents, cuts, dtype):
+    """Each band's sums against the plain version, two launches bit-equal,
+    and the bands' sums turned into grids against the pad-aware form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    x = torch.from_numpy(_input(shape, seed=11)).to("cuda", dtype)
+    v = torch.tensor(extents, dtype=torch.int32, device="cuda")
+    h = shape[1]
+    before = ppm_pool.BAND_LAUNCHES
+    total = 0
+    for a, b in zip(cuts, cuts[1:]):
+        band = x[:, a:b].contiguous()
+        sums = ppm_pool.pyramid_pool_band(band, v, a, h)
+        assert torch.equal(sums, ppm_pool.pyramid_pool_band(band, v, a, h))
+        torch.testing.assert_close(sums, ppm_pool.pyramid_pool_band_plain(band, v, a, h),
+                                   atol=1e-3, rtol=1e-5)
+        total = total + sums
+    torch.cuda.synchronize()
+    assert ppm_pool.BAND_LAUNCHES == before + 2 * (len(cuts) - 1)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=8e-3)
+    grids = ppm_pool.band_sums_to_grids(total, v, shape[1:3], dtype)
+    for o, p in zip(grids, ppm_pool.pyramid_pool_plain(x, valid_hw=v)):
         torch.testing.assert_close(o.float(), p.float(), **tol)
 
 

@@ -39,7 +39,7 @@ from semseg_tpu_torch.models.convert import SYNCBN_ACCUMULATORS, state_dicts_fro
 from semseg_tpu_torch.models.decoders import C1
 from semseg_tpu_torch.models.resnet import ResNetEncoder
 
-from test_torch_model import _perturb_stats
+from test_torch_model import _perturb_stats, jax_init
 
 # (encoder, decoder, fc_dim); hrnetv2 + C1 and the UPerNet pair run in
 # test_torch_zoo_hrnet_upernet.py, so that the two files run side by side.
@@ -77,10 +77,11 @@ def _port_model(encoder, decoder, fc_dim):
     )
 
 
-def build_family(encoder, decoder, fc_dim):
-    """(JAX model, variables, port model, arch keys) of one family."""
+def build_family(encoder, decoder, fc_dim, jit=False):
+    """(JAX model, variables, port model, arch keys) of one family; ``jit``:
+    the JAX variables initialised by one compiled program."""
     model = _jax_model(encoder, decoder, fc_dim)
-    variables = jax.tree.map(np.asarray, init_variables(model, seed=0, image_size=HW))
+    variables = jax_init(model, image_size=HW, jit=jit)
     variables = {"params": variables["params"],
                  "batch_stats": _perturb_stats(variables["batch_stats"],
                                                np.random.RandomState(0))}
