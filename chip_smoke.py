@@ -25,7 +25,9 @@ PyTorch built for CUDA. In order:
    the zoo's shapes (C = 512, UPerNet's small conv5 maps) among them. With
    ``--compare PATH`` it also times a library built
    from another ``ppm_pool.cu`` (an earlier version) in turns with this
-   one: other, this, this, other;
+   one: other, this, this, other (the backward too, after holding it bit
+   for bit to the other build at every phase-8 check shape, and in phase
+   12 the band form);
 5. the main paths at full width: the flagship resnet50dilated + ppm_deepsup
    with seeded random weights saved as a reference ``.pth`` pair, through
    ``cli.test`` (3 images, bucketed per-image engine), ``cli.eval --exact``,
@@ -156,6 +158,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -209,6 +212,13 @@ TIME_CASES = [
     ("valid", (4, 19, 25, 2048), [[19, 25]] * 4),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# The pool's kernels as the profiler names them (substrings of the
+# demangled names): the dense and pad-aware forms' two passes, the band
+# form, the backward. A profile check that finds none of a form's kernels
+# fails.
+FORWARD_KERNELS = ("ppm_cells_kernel", "ppm_combine_kernel")
+BAND_KERNEL = "ppm_band_kernel"
+BACKWARD_KERNEL = "ppm_pool_backward_kernel"
 FLUSH_BYTES = 256 * 2**20
 TEST_IMAGES = [(480, 640), (375, 500), (600, 451)]  # (H, W)
 # Landscape images share buckets, portrait ones share buckets of 3 tasks
@@ -417,19 +427,47 @@ def bound_ms(shape, extents, element_size):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _pass_us(ppm_pool, torch, x, v, flush):
-    """Mean device time (us) of each of the kernel's two passes over 10
-    cold calls, from torch.profiler."""
+def _matching(events, names, what):
+    """The profiler events whose key holds one of ``names``. Raises if the
+    profile holds device kernels but none of these (a renamed kernel must
+    not pass a check empty); an empty list means that the profiler
+    recorded no device activity at all."""
+    from torch.autograd import DeviceType
+
+    found = [e for e in events if any(name in e.key for name in names)]
+    device = sorted({e.key[:80] for e in events if e.device_type == DeviceType.CUDA})
+    if not found and device:
+        raise RuntimeError(f"{what}: no kernel named {names} in the profile; kernels seen: "
+                           f"{device[:20]}")
+    return found
+
+
+def _profiled(fn, torch, flush, calls=10):
+    """key_averages() of ``calls`` cold calls of ``fn`` under torch.profiler,
+    profiled again (up to three times) while it records no device activity
+    (CUPTI sometimes drops a profile's kernels)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            flush.sum()
-            ppm_pool.launch(ppm_pool._lib(), x, v)
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.device_type == DeviceType.CUDA for e in events):
+            break
+    return events
+
+
+def _pass_us(ppm_pool, torch, x, v, flush):
+    """Mean device time (us) of each of the kernel's two passes over 10
+    cold calls, from torch.profiler (empty: not measured)."""
+    events = _profiled(lambda: ppm_pool.launch(ppm_pool._lib(), x, v), torch, flush)
+    found = _matching(events, FORWARD_KERNELS, f"pyramid_pool {tuple(x.shape)}")
     return {name: e.self_device_time_total / e.count
-            for e in prof.key_averages()
-            for name in ("ppm_cells_kernel", "ppm_combine_kernel") if name in e.key}
+            for e in found for name in FORWARD_KERNELS if name in e.key}
 
 
 def time_kernel(ppm_pool, torch, card: str, compare=None) -> dict:
@@ -473,27 +511,19 @@ def time_kernel(ppm_pool, torch, card: str, compare=None) -> dict:
                       f"F.adaptive_avg_pool2d {shape} {dt}: {lib_ms:.4f} ms cold; one read of "
                       f"the same bytes by torch.sum: {sum_ms:.4f} ms cold", flush=True)
             if compare is not None:
-                runs = []
-                for who, lib in (("other", compare), ("this", this), ("this", this),
-                                 ("other", compare)):
-                    def call():
-                        return ppm_pool.launch(lib, x, v)
-                    runs.append(f"{who} {_median_ms(call, torch, flush):.4f} cold / "
-                                f"{_median_ms(call, torch):.4f} warm")
-                print(f"[compare] {form} {shape} {dt} (ms): " + "; ".join(runs) +
-                      f" (card: {card})", flush=True)
+                _turns(lambda lb: lambda: ppm_pool.launch(lb, x, v),
+                       {"this": this, "other": compare}, torch, flush, card,
+                       f"{form} {shape} {dt}")
     return out
 
 
 def print_build(ppm_pool):
     """Registers and spills of every kernel from the build's ptxas output;
-    raises on a spill."""
-    import re
-
+    raises, after printing them all, if any spills."""
     from semseg_tpu_torch.ops.kernels._build import build_log
 
     log = build_log("ppm_pool", ppm_pool.SOURCES)
-    kernel, spills, kernels = None, None, 0
+    kernel, spills, kernels, spilled = None, None, 0, []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -512,10 +542,12 @@ def print_build(ppm_pool):
                   f"{smem.group(1) if smem else 0} bytes shared memory, spill stores/loads "
                   f"{spills[0]}/{spills[1]} bytes", flush=True)
             if any(spills):
-                raise RuntimeError(f"{kernel} spills registers: {spills}")
+                spilled.append((short, spills))
             kernel = None
     if kernels == 0:
         raise RuntimeError("the build log holds no ptxas report")
+    if spilled:
+        raise RuntimeError(f"kernels spill registers: {spilled}")
 
 
 def _write_images(root, shapes, rng, labels=False):
@@ -910,11 +942,11 @@ def profile_pass(name, fn, torch, card):
     print(f"[profile] {name} pass under torch.profiler: wall {wall_ms:.1f} ms, device "
           f"kernel time {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f} (card: {card})",
           flush=True)
-    pool = [e for e in kernels if "ppm_cells_kernel" in e.key or "ppm_combine_kernel" in e.key]
+    pool = _matching(kernels, FORWARD_KERNELS, f"the {name} pass")
     pool_ms = sum(dev_ms(e) for e in pool)
     print(f"[profile] pyramid_pool in the {name} pass: {pool_ms:.3f} ms of device time "
           f"({pool_ms / busy_ms:.2%}) over " + ", ".join(
-              f"{e.count} x {'ppm_cells_kernel' if 'ppm_cells' in e.key else 'ppm_combine_kernel'}"
+              f"{e.count} x {next(k for k in FORWARD_KERNELS if k in e.key)}"
               for e in pool) + f" (card: {card})", flush=True)
     levels = [e for e in events if e.key == "semseg::levels" and e.device_type == DeviceType.CPU]
     if levels:
@@ -1165,11 +1197,41 @@ def backward_bound_ms(shape, element_size):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def time_backward(ppm_pool, torch, card) -> dict:
-    """Phase 8: (warm ms, cold ms, plain ms, bound ms, bound_by) of the
-    backward kernel per timed shape and dtype."""
-    from torch.profiler import ProfilerActivity, profile
+def check_backward_against(ppm_pool, torch, other) -> None:
+    """``--compare``: the backward of this build equals the other build's
+    bit for bit at every BACKWARD_CHECKS shape and dtype (same terms, same
+    order, one rounding)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    this = ppm_pool._lib()
+    for shape in BACKWARD_CHECKS:
+        n, h, w, c = shape
+        for dt in ("float32", "bfloat16"):
+            grads = [torch.randn(n, s, s, c, generator=g, device="cuda").to(getattr(torch, dt))
+                     for s in ppm_pool.SCALES]
+            mine = ppm_pool.launch_backward(this, grads, (h, w))
+            theirs = ppm_pool.launch_backward(other, grads, (h, w))
+            if not torch.equal(mine, theirs):
+                raise RuntimeError(f"pyramid_pool backward {shape} {dt}: this build differs from "
+                                   f"the other by {(mine.float() - theirs.float()).abs().max():.3e}")
+            print(f"[compare] pyramid_pool backward {shape} {dt}: bit-equal to the other build",
+                  flush=True)
 
+
+def _turns(fn_of, libs, torch, flush, card, what):
+    """``--compare``: ``fn_of(lib)`` timed cold and warm in turns, other,
+    this, this, other, on one card."""
+    runs = []
+    for who in ("other", "this", "this", "other"):
+        fn = fn_of(libs[who])
+        runs.append(f"{who} {_median_ms(fn, torch, flush):.4f} cold / "
+                    f"{_median_ms(fn, torch):.4f} warm")
+    print(f"[compare] {what} (ms): " + "; ".join(runs) + f" (card: {card})", flush=True)
+
+
+def time_backward(ppm_pool, torch, card, compare=None) -> dict:
+    """Phase 8: (warm ms, cold ms, plain ms, bound ms, bound_by) of the
+    backward kernel per timed shape and dtype; one kernel per call under the
+    profiler. With ``compare``, the other build in turns."""
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     lib = ppm_pool._lib()
     out = {}
@@ -1183,19 +1245,21 @@ def time_backward(ppm_pool, torch, card) -> dict:
             cold = _median_ms(run, torch, flush)
             plain = _median_ms(lambda: ppm_pool.pyramid_pool_backward_plain(grads, (h, w)), torch)
             bound, bound_by = backward_bound_ms(shape, grads[0].element_size())
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    flush.sum()
-                    run()
-                torch.cuda.synchronize()
-            dev = [e.self_device_time_total / e.count for e in prof.key_averages()
-                   if "ppm_pool_backward_kernel" in e.key]
+            dev = _matching(_profiled(run, torch, flush), (BACKWARD_KERNEL,),
+                            f"pyramid_pool backward {shape}")
+            if dev and sum(e.count for e in dev) != 10:
+                raise RuntimeError(f"pyramid_pool backward {shape}: {[e.count for e in dev]} "
+                                   "kernels for 10 calls")
             out[(shape, dt)] = (warm, cold, plain, bound, bound_by)
             print(f"[time] pyramid_pool backward {shape} {dt}: kernel {warm:.4f} ms warm, "
                   f"{cold:.4f} ms cold; bound {bound:.4f} ms ({bound_by}), share of bound "
                   f"{bound / cold:.3f} cold, {bound / warm:.3f} warm; kernel under the profiler "
-                  f"(cold) {dev[0] if dev else float('nan'):.2f} us; plain {plain:.4f} ms "
-                  f"(median of 50; card: {card})", flush=True)
+                  f"(cold) {f'{dev[0].self_device_time_total / dev[0].count:.2f} us' if dev else 'not measured (no device activity recorded)'}; plain "
+                  f"{plain:.4f} ms (median of 50; card: {card})", flush=True)
+            if compare is not None:
+                _turns(lambda lb: lambda: ppm_pool.launch_backward(lb, grads, (h, w)),
+                       {"this": lib, "other": compare}, torch, flush, card,
+                       f"pyramid_pool backward {shape} {dt}")
     return out
 
 
@@ -1407,8 +1471,8 @@ def train_steady_state(torch, card):
 
 
 TRAIN_KERNEL_GROUPS = (
-    ("pool forward", ("ppm_cells_kernel", "ppm_combine_kernel")),
-    ("pool backward", ("ppm_pool_backward_kernel",)),
+    ("pool forward", FORWARD_KERNELS),
+    ("pool backward", (BACKWARD_KERNEL,)),
     ("convolutions (cuDNN)", ("conv", "xmma", "gemm", "cudnn", "implicit", "wgrad", "dgrad",
                               "cutlass", "sm90_", "sm80_", "nchwToNhwc", "nhwcToNchw")),
     ("casts and copies", ("copy",)),
@@ -1440,6 +1504,8 @@ def profile_train_step(step, torch, card, wall_s):
         print("[profile] train step: the profiler recorded no device time; not measured",
               flush=True)
         return
+    for group, keys in TRAIN_KERNEL_GROUPS[:2]:  # the pool's, one forward and one backward
+        _matching(kernels, keys, f"the train step's {group}")
     groups = {name: 0.0 for name, _ in TRAIN_KERNEL_GROUPS}
     groups["other"] = 0.0
     for e in kernels:
@@ -2517,10 +2583,9 @@ def eval_profile_phase(work, ckpt, val_dir, odgt, torch, ppm_pool, card):
     path = os.path.join(trace_dir, "eval_trace.json")
     with open(path) as f:
         names = {e.get("name") or "" for e in json.load(f)["traceEvents"]}
-    pool = sorted(n for n in names if "ppm_combine_kernel" in n or "ppm_cells_kernel" in n)
-    # The pad-aware form's combine: ppm_combine_kernel<T, kValid = true,
-    # kBand = false>.
-    valid_kernels = [n for n in pool if "ppm_combine_kernel" in n and "true, false>" in n]
+    pool = sorted(n for n in names if any(k in n for k in FORWARD_KERNELS))
+    # The pad-aware form's combine: ppm_combine_kernel<T, kValid = true>.
+    valid_kernels = [n for n in pool if re.search(r"ppm_combine_kernel<[^<>]*, true>", n)]
     print(f"[profile] cli.eval --profile over 2 images: {os.path.getsize(path) / 1e6:.1f} MB "
           f"trace, {len(names)} distinct event names, {seconds:.1f} s wall; pool kernels in "
           f"it: {[n[:70] for n in pool]}; mIoU {miou:.4f} (card: {card})", flush=True)
@@ -2619,12 +2684,14 @@ def band_bound_ms(shape, element_size):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def time_band_kernel(ppm_pool, torch, card) -> dict:
+def time_band_kernel(ppm_pool, torch, card, compare=None) -> dict:
     """(a), timed: the flagship's conv5 (1, 75, 100, 2048) cut as a 600-row
     canvas's stride-8 rows into 2 and 4 bands (``BandPlan``): the first
     band's launch warm and L2-cold, its plain version, all bands in turn on
-    one card, and the pad-aware form on the whole map, cold. Returns
-    {(bands, dtype): (warm, cold, plain, bound, bound_by)}."""
+    one card, and the pad-aware form on the whole map, cold; one kernel
+    launch per call under the profiler. With ``compare``, the other build
+    in turns. Returns {(bands, dtype): (warm, cold, plain, bound,
+    bound_by)}."""
     from semseg_tpu_torch.parallel.spatial import BandPlan
 
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -2649,13 +2716,26 @@ def time_band_kernel(ppm_pool, torch, card) -> dict:
             every = _median_ms(all_bands, torch, flush)
             whole = _median_ms(lambda: ppm_pool.pyramid_pool(x, valid_hw=v), torch, flush)
             bound, bound_by = band_bound_ms(tuple(band.shape), x.element_size())
+            events = _profiled(one, torch, flush)
+            mine = _matching(events, (BAND_KERNEL,), f"pyramid_pool_band {tuple(band.shape)}")
+            ours = [e for e in events if "ppm_" in e.key]
+            if mine and (len(ours) != len(mine) or sum(e.count for e in mine) != 10):
+                raise RuntimeError(f"pyramid_pool_band: {[(e.key[:60], e.count) for e in ours]} "
+                                   "for 10 calls, not one band kernel each")
             out[(bands, dt)] = (warm, cold, plain, bound, bound_by)
             print(f"[time] pyramid_pool_band {tuple(band.shape)} (rows {rows[0]} of "
                   f"{MAIN_SHAPE}, {bands} bands) {dt}: {warm:.4f} ms warm, {cold:.4f} ms cold; "
                   f"bound {bound:.4f} ms ({bound_by}), share of bound {bound / cold:.3f} cold; "
                   f"plain {plain:.4f} ms; all {bands} bands in turn on one card {every:.4f} ms "
                   f"cold; the pad-aware form on the whole map {whole:.4f} ms cold (median of "
-                  f"50; card: {card})", flush=True)
+                  f"50); under the profiler (cold) " + (
+                      f"one kernel per call, {mine[0].self_device_time_total / 10:.2f} us"
+                      if mine else "not measured (no device activity recorded)") +
+                  f" (card: {card})", flush=True)
+            if compare is not None:
+                _turns(lambda lb: lambda: ppm_pool.launch_band(lb, band, v, r0, 75),
+                       {"this": ppm_pool._lib(), "other": compare}, torch, flush, card,
+                       f"pyramid_pool_band {tuple(band.shape)} {dt}")
     return out
 
 
@@ -2723,14 +2803,14 @@ def spatial_engines(ckpt, val_dir, odgt, torch, ppm_pool, card):
     return launches
 
 
-def spatial_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt):
+def spatial_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, compare=None):
     """Phase 12: (a)-(c) above. Returns (band launches of the spatial paths,
     the band form's largest sum error, its times)."""
     from semseg_tpu_torch.cli import eval as eval_cli
 
     start = time.perf_counter()
     err = check_band_kernel(ppm_pool, torch)
-    times = time_band_kernel(ppm_pool, torch, card)
+    times = time_band_kernel(ppm_pool, torch, card, compare)
     launches = spatial_engines(ckpt, val_dir, odgt, torch, ppm_pool, card)
     cfg = _cfg("DIR", ckpt)
     levels = sum(len(p) for p in _val_items(cfg, val_dir, odgt)[0])
@@ -2842,8 +2922,10 @@ def main(argv=None) -> int:
     max_err = check_kernel(ppm_pool, torch)
     valid_err = check_valid_kernel(ppm_pool, torch)
     backward_err = check_backward_kernel(ppm_pool, torch)
+    if compare is not None:
+        check_backward_against(ppm_pool, torch, compare)
     times = time_kernel(ppm_pool, torch, card, compare)
-    backward_times = time_backward(ppm_pool, torch, card)
+    backward_times = time_backward(ppm_pool, torch, card, compare)
 
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
@@ -2873,10 +2955,13 @@ def main(argv=None) -> int:
         for form in ("dense", "valid"):
             launches[form] += slice_launches[form]
         band_launches, _, band_times = spatial_phase(work, torch, ppm_pool, card, ckpt,
-                                                     val_dir, odgt)
+                                                     val_dir, odgt, compare)
         if torch.cuda.device_count() > 1:
             multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_root,
                              train_odgt)
+
+    def timed(case):
+        return dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by"), case))
 
     def numbers(case):
         # bf16 at the first timed case of the form; no single PyTorch call
@@ -2899,9 +2984,10 @@ def main(argv=None) -> int:
          "replaces": "semseg_tpu/ops/pool.py:55",
          "launches": (train_launches["backward"] + dp_launches["backward"]
                       + slice_launches["backward"]),
-         "max_abs_err": backward_err,
-         **dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by"),
-                    backward_times[(BACKWARD_TIMED[0], "bfloat16")])), "library_ms": None},
+         "max_abs_err": backward_err, **timed(backward_times[(BACKWARD_TIMED[0], "bfloat16")]),
+         "library_ms": None,
+         # The flagship's own batch-2 training map, bf16.
+         "at_2x40x56x2048": timed(backward_times[((2, 40, 56, 2048), "bfloat16")])},
         {"name": "pyramid_pool_band", **entry,
          # The band form of the same pool: the JAX package lets GSPMD split
          # the pool's sums over the sharded height.
@@ -2909,8 +2995,7 @@ def main(argv=None) -> int:
          "launches": band_launches, "max_abs_err": band_err,
          # bf16, the first of 2 bands; no single PyTorch call computes the
          # sums.
-         **dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by"),
-                    band_times[(2, "bfloat16")])), "library_ms": None},
+         **timed(band_times[(2, "bfloat16")]), "library_ms": None},
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,10 @@ row0 + hb)`` of an H-row map, and writes each bin's f32 SUM over the
 band's rows of the bin (over each sample's valid extent): (N, 50, C) in the
 order scale 1, 2, 3, 6 and (i, j) row-major. ``band_sums_to_grids`` adds
 the bands' sums, divides by the bin areas and rounds once, which is the
-pad-aware form's result up to the order of the sums.
+pad-aware form's result up to the order of the sums. It is one launch of
+its own kernel (``ppm_band_kernel``): a block per 16 channels stages the
+band's rows in shared memory, some of its warps copying while the others
+sum the rows that have arrived, so nothing but the sums is allocated.
 
 The four forms are registered operators, ``semseg_tpu_torch::pyramid_pool``,
 ``::pyramid_pool_valid``, ``::pyramid_pool_band`` and ``::pyramid_pool_backward``
@@ -34,9 +37,10 @@ gradient (``register_autograd``) is the backward operator, a second
 hand-written kernel (``ppm_pool_backward_kernel`` in the same source), which
 writes ``grad_x[n, h, w, c] = sum over the scales s and the bins (i, j) of s
 that hold (h, w) of g_s[n, i, j, c] / area_s(i, j)``. The gradient is
-constant over each of the forward's cells, so one block computes a cell's
-vector from the 50 small bin gradients and stores it to every pixel of the
-cell with 16-byte stores: bound by the bytes of ``grad_x`` written. The JAX
+constant over each of the forward's cells, so a block stages the 50 small
+bin gradients once, forms the cell vectors of one row segment from them and
+stores each to every pixel of its cell with TMA bulk stores: bound by the
+bytes of ``grad_x`` written. The JAX
 package has no backward for its Pallas kernel; it differentiates XLA's
 integral-image pool (``semseg_tpu/ops/pool.py:55``), which computes the
 same sum. The pad-aware form is inference only (the JAX package trains on
@@ -177,7 +181,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.ppm_pool_backward_launch.argtypes = [vp] * 5 + [ci] * 5 + [vp]
         lib.ppm_pool_backward_launch.restype = ci
     if hasattr(lib, "ppm_pool_band_launch"):
-        lib.ppm_pool_band_launch.argtypes = [vp] * 4 + [ci] * 7 + [vp]
+        # An older source's band form also takes a scratch pointer.
+        lib.band_scratch = not hasattr(lib, "ppm_pool_band_abi")
+        lib.ppm_pool_band_launch.argtypes = [vp] * (4 if lib.band_scratch else 3) + [ci] * 7 + [vp]
         lib.ppm_pool_band_launch.restype = ci
     return lib
 
@@ -210,14 +216,15 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor,
 def launch_band(lib: ctypes.CDLL, x: torch.Tensor, valid_hw: torch.Tensor, row0: int,
                 h: int) -> torch.Tensor:
     """One launch of ``lib``'s band form on checked CUDA inputs, uncounted;
-    returns the (N, 50, C) f32 sums."""
+    returns the (N, 50, C) f32 sums, the only tensor it allocates (a library
+    built from an older source also gets its scratch)."""
     n, hb, w, c = x.shape
     sums = torch.empty((n, 50, c), dtype=torch.float32, device=x.device)
-    scratch = torch.empty(int(lib.ppm_pool_scratch_floats(n, h, w, c)),
-                          dtype=torch.float32, device=x.device)
+    scratch = [torch.empty(int(lib.ppm_pool_scratch_floats(n, h, w, c)),
+                           dtype=torch.float32, device=x.device)] if lib.band_scratch else []
     with torch.cuda.device(x.device):
         err = lib.ppm_pool_band_launch(
-            x.data_ptr(), sums.data_ptr(), scratch.data_ptr(), valid_hw.data_ptr(),
+            x.data_ptr(), sums.data_ptr(), *(t.data_ptr() for t in scratch), valid_hw.data_ptr(),
             n, hb, w, c, h, row0, _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream,
         )

@@ -196,7 +196,18 @@ def test_valid_kernel_matches_plain_on_card(shape, extents, dtype):
     ((1, 75, 100, 2048), [[75, 100]], [0, 19, 38, 57, 75]),
     ((3, 13, 17, 250), [[13, 17], [7, 9], [0, 0]], [0, 1, 2, 7, 8, 13]),
     ((2, 38, 50, 2048), [[38, 50], [21, 33]], [0, 5, 30, 38]),
-], ids=["2-bands", "4-bands", "odd-C-1-row-bands-empty-extent", "bins-straddle"])
+    # BandPlan(600, 8).rows(8): the flagship's conv5 in 8 bands.
+    ((1, 75, 100, 2048), [[75, 100]], [0, 10, 20, 30, 39, 48, 57, 66, 75]),
+    # The second sample's extent ends above the last two bands.
+    ((2, 75, 100, 2048), [[75, 100], [30, 61]], [0, 19, 38, 57, 75]),
+    # 13 x 13: 1-row and 1-column segments, so one-pixel cells, in 1-row bands.
+    ((2, 13, 13, 2048), [[13, 13], [11, 12]], list(range(14))),
+    ((2, 38, 50, 250), [[38, 50], [17, 49]], [0, 19, 38]),
+    # C = 2056: the last channel tile holds 8 channels (bf16) or 4 (f32),
+    # so most of its cluster's blocks combine channels past C.
+    ((1, 38, 50, 2056), [[38, 50]], [0, 10, 38]),
+], ids=["2-bands", "4-bands", "odd-C-1-row-bands-empty-extent", "bins-straddle", "8-bands",
+        "band-past-extent", "one-pixel-cells", "C-250", "partial-last-tile"])
 def test_band_kernel_matches_plain_on_card(shape, extents, cuts, dtype):
     """Each band's sums against the plain version, two launches bit-equal,
     and the bands' sums turned into grids against the pad-aware form."""
@@ -221,6 +232,27 @@ def test_band_kernel_matches_plain_on_card(shape, extents, cuts, dtype):
     grids = ppm_pool.band_sums_to_grids(total, v, shape[1:3], dtype)
     for o, p in zip(grids, ppm_pool.pyramid_pool_plain(x, valid_hw=v)):
         torch.testing.assert_close(o.float(), p.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_band_kernel_takes_unaligned_bands(dtype):
+    """Bands whose data_ptr is not 16-byte aligned are staged with scalar
+    loads: each band against the plain version, bit-equal on repeat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    shape = (1, 75, 100, 2048)
+    flat = torch.from_numpy(_input((int(np.prod(shape)) + 1,), seed=12)).to("cuda",
+                                                                            getattr(torch, dtype))
+    x = flat[1:].view(shape)
+    v = torch.tensor([[75, 100]], dtype=torch.int32, device="cuda")
+    for a, b in [(0, 19), (19, 38), (38, 75)]:
+        band = x[:, a:b]
+        assert band.data_ptr() % 16 != 0
+        sums = ppm_pool.pyramid_pool_band(band, v, a, 75)
+        assert torch.equal(sums, ppm_pool.pyramid_pool_band(band, v, a, 75))
+        torch.testing.assert_close(sums, ppm_pool.pyramid_pool_band_plain(band, v, a, 75),
+                                   atol=1e-3, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -292,6 +324,22 @@ def test_backward_kernel_matches_plain_on_card(shape, dtype):
     torch.testing.assert_close(x.grad.float(), ref.float(), **_backward_tol(dtype))
     again = ppm_pool.launch_backward(ppm_pool._lib(), grads, (h, w))
     assert torch.equal(again, x.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernel_repeats_bit_for_bit_at_the_training_map(dtype):
+    """The flagship's batch-2 training conv5: the kernel against the plain
+    version, and three launches on the same gradients bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    grads = [torch.from_numpy(_input((2, s, s, 2048), seed=20 + s)).to("cuda", dtype)
+             for s in SCALES]
+    outs = [ppm_pool.launch_backward(ppm_pool._lib(), grads, (40, 56)) for _ in range(3)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    ref = ppm_pool.pyramid_pool_backward_plain(grads, (40, 56))
+    torch.testing.assert_close(outs[0].float(), ref.float(), **_backward_tol(dtype))
 
 
 @pytest.mark.cuda

@@ -10,13 +10,21 @@ the CPU, each against its whole-map op, in float32.
 * the pool's band form (``pyramid_pool_band_plain``) summed over random
   splits and divided by the bin areas (``band_sums_to_grids``) against the
   pad-aware form (``pyramid_pool_plain(valid_hw=...)``): atol 1e-6;
+* the summed bands held directly against JAX's ``adaptive_avg_pool2d_valid``
+  (``semseg_tpu/ops/resize_dynamic.py:70``) times the bin areas, over
+  ``BandPlan`` cuts and over one-row bands at every segment boundary:
+  within 1e-6 of the largest sum (JAX's f32 means carry ~4e-7 of relative
+  rounding into the product);
 * ``upsample_grid_valid`` over a band's rows bit-equal to those rows of the
   whole map's.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from semseg_tpu.ops.resize_dynamic import adaptive_avg_pool2d_valid
 
 from semseg_tpu_torch.models.layers import Conv2d
 from semseg_tpu_torch.ops.kernels import ppm_pool
@@ -134,6 +142,52 @@ def test_band_sums_over_random_splits_are_the_valid_form(shape, extents, seed):
     torch.testing.assert_close(band, ppm_pool.pyramid_pool_band_plain(x[:, :cuts[1]], v, 0, h),
                                rtol=0, atol=0)
     assert ppm_pool.BAND_LAUNCHES == before
+
+
+def _jax_band_sums(x, extents):
+    """(N, 50, C) bin sums from JAX's pad-aware means times the bin areas
+    over each extent (clamped to the map, an area at least 1), in float64."""
+    n, h, w, c = x.shape
+    v = np.clip(np.asarray(extents), 0, [h, w])
+    sums = []
+    for s in ppm_pool.SCALES:
+        mean = np.asarray(adaptive_avg_pool2d_valid(
+            jnp.asarray(x), s, jnp.asarray(np.asarray(extents, np.int32))), np.float64)
+        i = np.arange(s)
+
+        def lengths(e):  # (N, s) bin lengths over extents e
+            return ((i + 1) * e[:, None] + s - 1) // s - (i * e[:, None]) // s
+
+        area = np.maximum(lengths(v[:, 0])[:, :, None] * lengths(v[:, 1])[:, None, :], 1)
+        sums.append((mean * area[..., None]).reshape(n, s * s, c))
+    return np.concatenate(sums, axis=1)
+
+
+def _boundary_bands(h):
+    """Row cuts of an h-row map with a one-row band at every boundary of its
+    segments (the starts and ends of its six scale-6 bins)."""
+    bounds = {(i * h) // 6 for i in range(6)} | {-(-((i + 1) * h) // 6) for i in range(6)}
+    inside = {b for b in bounds if b < h}
+    return sorted({0, h} | inside | {b + 1 for b in inside})
+
+
+@pytest.mark.parametrize("shape,extents,cuts", [
+    ((4, 75, 100, 6), [[75, 100], [37, 51], [75, 13], [0, 0]], BandPlan(600, 2).rows(8)),
+    ((4, 75, 100, 6), [[75, 100], [37, 51], [75, 13], [0, 0]], BandPlan(600, 4).rows(8)),
+    ((4, 75, 100, 6), [[75, 100], [37, 51], [75, 13], [0, 0]], BandPlan(600, 8).rows(8)),
+    ((4, 75, 100, 6), [[75, 100], [61, 99], [2, 100], [13, 1]], _boundary_bands(75)),
+    ((3, 40, 56, 6), [[40, 56], [23, 41], [1, 56]], _boundary_bands(40)),
+], ids=["plan-2", "plan-4", "plan-8", "boundary-rows-75", "boundary-rows-40"])
+def test_summed_band_sums_are_jax_valid_pool_times_areas(shape, extents, cuts):
+    if isinstance(cuts[0], tuple):  # BandPlan rows: [(a, b), ...]
+        cuts = [a for a, _ in cuts] + [cuts[-1][1]]
+    assert cuts[0] == 0 and cuts[-1] == shape[1]
+    x = np.random.RandomState(shape[1]).randn(*shape).astype(np.float32)
+    v = torch.tensor(extents, dtype=torch.int32)
+    total = sum(ppm_pool.pyramid_pool_band_plain(torch.from_numpy(x[:, a:b]), v, a, shape[1])
+                for a, b in zip(cuts, cuts[1:]))
+    ref = _jax_band_sums(x, extents)
+    np.testing.assert_allclose(total.double().numpy(), ref, atol=1e-6 * np.abs(ref).max(), rtol=0)
 
 
 @pytest.mark.parametrize("rows", [(0, 5), (5, 6), (6, 19), (0, 19)])

@@ -151,7 +151,10 @@ def test_batch_norm_module_trains_then_infers():
     assert float(bn._running_iter) == pytest.approx(1.999) and y.shape == (2, 16, 6, 7)
 
 
-@pytest.mark.parametrize("hw", [(75, 100), (8, 8), (6, 6), (4, 5), (1, 1)],
+# (40, 56), (56, 76), (80, 128): conv5 of the flagship's batch-2 training
+# canvases (short sides 300-600 on the 64-lattice, TRAIN.batch_size_per_gpu 2).
+@pytest.mark.parametrize("hw", [(75, 100), (8, 8), (6, 6), (4, 5), (1, 1), (40, 56), (56, 76),
+                                (80, 128)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_pool_gradient_matches_jax_vjp(hw):
     rng = np.random.RandomState(hw[0] * 101 + hw[1])
