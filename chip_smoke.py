@@ -138,14 +138,35 @@ PyTorch built for CUDA. In order:
    ``cli.eval --device cuda:0 --spatial 2`` end to end, two band launches
    per level and no other pool launch.
 
+13. spatial training (after phase 12; ``cli.train TPU.spatial``): (a) the
+   pool's band backward (``pyramid_pool_band_backward``: rows [row0, row0 +
+   hb) of the dense backward) against its plain version in float32 and
+   bfloat16, at the flagship's training conv5 maps (2, 40, 56, 2048) and
+   (8, 56, 76, 2048) each in 2 and 4 bands, with odd C, unaligned
+   gradients, bands of one row and bins straddling bands: each launch
+   repeated bit for bit and each band bit-equal to the dense backward
+   kernel's rows; the first band timed warm and L2-cold beside its bound;
+   (b) the flagship at full width in float32 (TF32 off, deterministic
+   algorithms), batch 2 at 448x608, one step split in 2 and 4 bands on
+   cuda:0 against the unsplit step from the same weights, batch and
+   dropout generator, with phase 10 (a)'s limits (loss, accuracy, the
+   gradients of phase 10's parameters and of the stem's first conv, every
+   BN statistic, ``iter`` equal), the band forward and backward launched
+   once per band and no dense pool; (c) bf16: the split step's loss falls
+   over 5 steps on one repeated batch, and ms/step unsplit and in 2 and 4
+   bands on cuda:0; (d) ``cli.train --device cuda:0 ... TPU.spatial 2``,
+   one epoch of phase 8's data, writes its checkpoint pair.
+
 With more than one visible card, a last check puts a rank or an engine on
 every card: the ranks (NCCL) against one process as in 10 (a),
 ``cli.train --devices N`` for one epoch, ``cli.eval --exact --devices
 N`` against one engine, ``cli.serve --devices N`` (a backend per card,
-the bundle exported on card 0) as in 11 (c), and the spatial engine over
+the bundle exported on card 0) as in 11 (c), the spatial engine over
 the cards against one card (float32 within 2e-4) with its single-image
-latency at 1, 2 and 4 cards. Run with no arguments on one card, it needs
-one.
+latency at 1, 2 and 4 cards, the split training step with its bands on
+distinct cards against one card (as 13 (b)) with ms/step at 1, 2 and 4
+cards, and ``cli.train TPU.spatial 2`` over the cards (N / 2 data groups).
+Run with no arguments on one card, it needs one.
 
 It ends with a JSON line of per-kernel results, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}`` as the last
@@ -442,10 +463,11 @@ def _matching(events, names, what):
     return found
 
 
-def _profiled(fn, torch, flush, calls=10):
+def _profiled(fn, torch, flush, calls=10, names=()):
     """key_averages() of ``calls`` cold calls of ``fn`` under torch.profiler,
     profiled again (up to three times) while it records no device activity
-    (CUPTI sometimes drops a profile's kernels)."""
+    or, with ``names``, fewer than ``calls`` kernels of those names (CUPTI
+    sometimes drops a profile's kernels, or one kernel's record)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -456,7 +478,8 @@ def _profiled(fn, torch, flush, calls=10):
                 fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        if any(e.device_type == DeviceType.CUDA for e in events):
+        named = sum(e.count for e in events if any(n in e.key for n in names))
+        if any(e.device_type == DeviceType.CUDA for e in events) and named >= calls * bool(names):
             break
     return events
 
@@ -664,16 +687,18 @@ def expected_dp_chunks(cfg, shapes, batch=4, *, quiet=False):
     return chunks
 
 
-def _run_path(name, fn, ppm_pool, torch, backward=0, band=0):
+def _run_path(name, fn, ppm_pool, torch, backward=0, band=0, band_backward=0):
     """Drive one path with the launch counts set to 0; returns (result,
     seconds, dense launches, valid launches). The backward kernel must
-    launch ``backward`` times, the band form ``band`` times."""
+    launch ``backward`` times, the band form ``band`` times, the band
+    backward ``band_backward`` times."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ppm_pool.LAUNCHES = 0
     ppm_pool.VALID_LAUNCHES = 0
     ppm_pool.BAND_LAUNCHES = 0
     ppm_pool.BACKWARD_LAUNCHES = 0
+    ppm_pool.BAND_BACKWARD_LAUNCHES = 0
     tic = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
@@ -682,10 +707,12 @@ def _run_path(name, fn, ppm_pool, torch, backward=0, band=0):
     print(f"[main] {name}: pyramid_pool launches dense {dense}, valid_hw {valid}, backward "
           f"{ppm_pool.BACKWARD_LAUNCHES}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if ppm_pool.BACKWARD_LAUNCHES != backward or ppm_pool.BAND_LAUNCHES != band:
+    if (ppm_pool.BACKWARD_LAUNCHES, ppm_pool.BAND_LAUNCHES,
+            ppm_pool.BAND_BACKWARD_LAUNCHES) != (backward, band, band_backward):
         raise RuntimeError(f"{name}: {ppm_pool.BACKWARD_LAUNCHES} backward launches "
                            f"(expected {backward}), {ppm_pool.BAND_LAUNCHES} band launches "
-                           f"(expected {band})")
+                           f"(expected {band}), {ppm_pool.BAND_BACKWARD_LAUNCHES} band "
+                           f"backward launches (expected {band_backward})")
     return result, seconds, dense, valid
 
 
@@ -1245,8 +1272,8 @@ def time_backward(ppm_pool, torch, card, compare=None) -> dict:
             cold = _median_ms(run, torch, flush)
             plain = _median_ms(lambda: ppm_pool.pyramid_pool_backward_plain(grads, (h, w)), torch)
             bound, bound_by = backward_bound_ms(shape, grads[0].element_size())
-            dev = _matching(_profiled(run, torch, flush), (BACKWARD_KERNEL,),
-                            f"pyramid_pool backward {shape}")
+            dev = _matching(_profiled(run, torch, flush, names=(BACKWARD_KERNEL,)),
+                            (BACKWARD_KERNEL,), f"pyramid_pool backward {shape}")
             if dev and sum(e.count for e in dev) != 10:
                 raise RuntimeError(f"pyramid_pool backward {shape}: {[e.count for e in dev]} "
                                    "kernels for 10 calls")
@@ -1321,12 +1348,12 @@ def train_phase(work, torch, ppm_pool, card):
     return launches, root, odgt
 
 
-def _train_model(torch, cfg, device, seed=0, group=None):
+def _train_model(torch, cfg, device, seed=0, group=None, spatial=None):
     from semseg_tpu_torch.models import ModelBuilder
     from semseg_tpu_torch.parallel import create_train_state
 
     model = ModelBuilder.build_model(cfg, device=device, seed=seed)
-    return create_train_state(cfg, model.train(), group)
+    return create_train_state(cfg, model.train(), group, spatial_devices=spatial)
 
 
 @contextlib.contextmanager
@@ -2246,6 +2273,7 @@ def multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_roo
           flush=True)
     serve_devices_phase(work, ckpt, torch, ppm_pool, card, devices=n)
     spatial_multi_card(ckpt, val_dir, odgt, torch, card, n)
+    spatial_train_multi_card(work, torch, ppm_pool, card, train_root, train_odgt, n)
     print(f"[multi] the multi-card phase took {time.perf_counter() - start:.1f} s (card: "
           f"{card})", flush=True)
 
@@ -2630,15 +2658,17 @@ SPATIAL_SCORE = 2e-4  # tests/test_engine.py:209, 4 devices against one
 SPATIAL_AGREE = 0.99  # bf16: cuDNN's choices per band shape round apart
 
 
-def check_band_kernel(ppm_pool, torch) -> float:
-    """(a): every band of each case against the plain version, each launch
-    repeated bit for bit, the bands' sums as grids against the pad-aware
-    form. Returns the largest absolute difference of a band's sums."""
+def check_band_kernel(ppm_pool, torch, checks=BAND_CHECKS, tag="[spatial]") -> float:
+    """(a): every band of each case of ``checks`` against the plain
+    version, each launch repeated bit for bit, the bands' sums as grids
+    against the pad-aware form; the first case also on a map one element
+    past a 16-byte boundary. Returns the largest absolute difference of a
+    band's sums."""
     import numpy as np
 
     max_err = 0.0
     g = torch.Generator(device="cuda").manual_seed(12)
-    cases = [(*c, False) for c in BAND_CHECKS] + [(*BAND_CHECKS[0], True)]
+    cases = [(*c, False) for c in checks] + [(*checks[0], True)]
     for shape, extents, cuts, unaligned in cases:
         v = torch.tensor(extents, dtype=torch.int32, device="cuda")
         h = shape[1]
@@ -2666,7 +2696,7 @@ def check_band_kernel(ppm_pool, torch) -> float:
             for o, r in zip(grids, ppm_pool.pyramid_pool_plain(x, valid_hw=v)):
                 torch.testing.assert_close(o.float(), r.float(), **_valid_tolerance(dtype))
                 grid_err = max(grid_err, (o.float() - r.float()).abs().max().item())
-            print(f"[spatial] pyramid_pool_band {shape} {dt} extents {extents} rows {cuts}"
+            print(f"{tag} pyramid_pool_band {shape} {dt} extents {extents} rows {cuts}"
                   f"{', data_ptr % 16 = ' + str(ptrs) if unaligned else ''}: ok, each band's "
                   f"two launches bit-equal; grids from the summed bands vs the pad-aware "
                   f"plain form max |d| {grid_err:.3e}", flush=True)
@@ -2716,7 +2746,7 @@ def time_band_kernel(ppm_pool, torch, card, compare=None) -> dict:
             every = _median_ms(all_bands, torch, flush)
             whole = _median_ms(lambda: ppm_pool.pyramid_pool(x, valid_hw=v), torch, flush)
             bound, bound_by = band_bound_ms(tuple(band.shape), x.element_size())
-            events = _profiled(one, torch, flush)
+            events = _profiled(one, torch, flush, names=(BAND_KERNEL,))
             mine = _matching(events, (BAND_KERNEL,), f"pyramid_pool_band {tuple(band.shape)}")
             ours = [e for e in events if "ppm_" in e.key]
             if mine and (len(ours) != len(mine) or sum(e.count for e in mine) != 10):
@@ -2877,6 +2907,405 @@ def spatial_multi_card(ckpt, val_dir, odgt, torch, card, n):
           f" (card: {card})", flush=True)
 
 
+# Phase 13: spatial training (``cli.train TPU.spatial``). (a) the pool's band
+# backward against its plain version and against the dense backward's rows,
+# then timed; (b) one float32 step of the flagship split in 2 and 4 bands on
+# cuda:0 against the unsplit step, at batch 2 and at batch 8; (c) bf16: the
+# split step's loss falls on a repeated batch, and ms/step split and
+# unsplit; (d) ``cli.train --device cuda:0 TPU.spatial 2`` for one epoch.
+# (shape, row cuts): the flagship's training conv5 maps, batch 2 at 320x448,
+# batch 2 at 448x608 (SPLIT_TRAIN, the map (b)-(c) split) and bench.py's
+# batch 8 at 448x608 ((b) at batch 8), each cut as BandPlan cuts its canvas
+# in 2 and 4 bands; odd C with bands of one row and bins straddling bands; a
+# map whose pixels lie in several bins of a scale per axis, one row a band.
+# The second case also runs on gradients one element past a 16-byte
+# boundary.
+BAND_BACKWARD_CHECKS = [
+    ((2, 40, 56, 2048), 2), ((2, 40, 56, 2048), 4), ((2, 56, 76, 2048), 2),
+    ((2, 56, 76, 2048), 4), ((8, 56, 76, 2048), 2), ((8, 56, 76, 2048), 4),
+    ((2, 13, 17, 250), (0, 1, 2, 6, 7, 13)), ((2, 4, 5, 2048), (0, 1, 2, 3, 4)),
+]
+# (shape, bands): the band form on the maps (b)-(c) split, at full extents
+# (training pools the whole canvas), against its plain version.
+SPLIT_BAND_CHECKS = [((2, 56, 76, 2048), 2), ((2, 56, 76, 2048), 4),
+                     ((8, 56, 76, 2048), 2), ((8, 56, 76, 2048), 4)]
+BAND_BACKWARD_TIMED = [((2, 40, 56, 2048), 2), ((2, 40, 56, 2048), 4), ((8, 56, 76, 2048), 2),
+                       ((8, 56, 76, 2048), 4)]
+SPLIT_TRAIN = (2, 448, 608)  # the flagship's batch, bench.py's canvas
+SPLIT_GRADS = DP_GRADS + ("encoder.conv1.weight",)
+# (b)'s gradient limits, {leaf: relative norm error}. At SPLIT_TRAIN phase
+# 10 (a)'s GRAD_REL: there the PPM's scale-1 BN normalises over 2 values,
+# y = +-1, so the exact gradient of `decoder.ppm.0.1.weight` (the conv
+# before it) is 0 and the step computes amplified rounding, which flows
+# back into the encoder (measured on an H100: 2.0e-2 / 1.46e-1 for that
+# leaf in 2 / 4 bands, the encoder's 2.3e-2 to 9.3e-2). At BENCH_TRAIN that
+# BN sees 8 values: the same leaf read 6.5e-3 / 6.8e-3, the encoder's
+# 1.5e-2 to 3.1e-2 (f32's own rounding, amplified through ~50 BN layers of
+# a random network: phase 8 measured f32 against f64 1.3-2.9%) and the
+# last conv, one layer from the loss, 1.0e-4: limits of two to three times
+# the readings there, which can see a split's own error that the limits at
+# SPLIT_TRAIN cannot.
+SPLIT_GRAD_LIMITS = {
+    SPLIT_TRAIN: dict.fromkeys(SPLIT_GRADS, GRAD_REL),
+    BENCH_TRAIN: {**dict.fromkeys(SPLIT_GRADS, 0.06), "decoder.ppm.0.1.weight": 0.015,
+                  "decoder.conv_last.4.weight": 3e-4},
+}
+SPLIT_TIMED_STEPS = 5
+
+
+def _cuts(shape, bands):
+    """Row cuts of a map: explicit, or those of ``bands`` BandPlan bands of
+    its 8x canvas at stride 8."""
+    from semseg_tpu_torch.parallel.spatial import BandPlan
+
+    if isinstance(bands, tuple):
+        return bands
+    rows = BandPlan(8 * shape[1], bands).rows(8)
+    return (0,) + tuple(b for _, b in rows)
+
+
+def check_band_backward_kernel(ppm_pool, torch) -> float:
+    """(a): every band of each case against the plain version and bit-equal
+    to the dense backward kernel's rows, each launch repeated bit for bit.
+    Returns the largest absolute difference from the plain version."""
+    max_err = 0.0
+    g = torch.Generator(device="cuda").manual_seed(13)
+    lib = ppm_pool._lib()
+    cases = [(*c, False) for c in BAND_BACKWARD_CHECKS] + [(*BAND_BACKWARD_CHECKS[1], True)]
+    for shape, bands, unaligned in cases:
+        n, h, w, c = shape
+        cuts = _cuts(shape, bands)
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            grads = []
+            for s in ppm_pool.SCALES:
+                flat = torch.randn(n * s * s * c + 1, generator=g, device="cuda").to(dtype)
+                grads.append((flat[1:] if unaligned else flat[:-1]).view(n, s, s, c))
+            dense = ppm_pool.launch_backward(lib, grads, (h, w))
+            err = 0.0
+            for a, b in zip(cuts, cuts[1:]):
+                out = ppm_pool.launch_band_backward(lib, grads, a, b - a, (h, w))
+                if not torch.equal(out, ppm_pool.launch_band_backward(lib, grads, a, b - a,
+                                                                      (h, w))):
+                    raise RuntimeError(f"pyramid_pool_band_backward {shape} rows [{a}, {b}): "
+                                       "two launches differ")
+                if not torch.equal(out, dense[:, a:b]):
+                    raise RuntimeError(
+                        f"pyramid_pool_band_backward {shape} {dt} rows [{a}, {b}): not the "
+                        f"dense backward's rows (max |d| "
+                        f"{(out.float() - dense[:, a:b].float()).abs().max():.3e})")
+                ref = ppm_pool.pyramid_pool_band_backward_plain(grads, a, b - a, (h, w))
+                # As the dense backward against its plain version (phase 8).
+                tol = dict(atol=1e-6, rtol=1e-6) if dtype == torch.float32 else \
+                    dict(atol=1e-6, rtol=8e-3)
+                torch.testing.assert_close(out.float(), ref.float(), **tol)
+                err = max(err, (out.float() - ref.float()).abs().max().item())
+            max_err = max(max_err, err)
+            where = ", unaligned gradients" if unaligned else ""
+            print(f"[spatial-train] pyramid_pool_band_backward {shape} {dt} rows {cuts}{where}: "
+                  f"ok, each band bit-equal to the dense backward kernel's rows and on "
+                  f"repeat; max |d| from the plain version {err:.3e}", flush=True)
+    torch.cuda.synchronize()
+    return max_err
+
+
+def band_backward_bound_ms(shape, element_size):
+    """Least time of one band backward on an H100 SXM: the band's grad_x
+    written once and the 50 bin gradients per channel read once over
+    3.35 TB/s, against its adds (50 terms per cell and channel, at most
+    121 cells) at 67 TFLOP/s."""
+    n, hb, w, c = shape
+    moved = (n * hb * w + 50 * n) * c * element_size
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * 50 * 121 * n * c / 67e12 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def time_band_backward(ppm_pool, torch, card) -> dict:
+    """(a), timed: the first band of each BAND_BACKWARD_TIMED cut warm and
+    L2-cold beside its bound, its plain version, and the dense backward on
+    the whole map, cold; one kernel per call under the profiler. Returns
+    {(shape, bands, dtype): (warm, cold, plain, bound, bound_by)}."""
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    lib = ppm_pool._lib()
+    out = {}
+    for shape, bands in BAND_BACKWARD_TIMED:
+        n, h, w, c = shape
+        cuts = _cuts(shape, bands)
+        r0, hb = cuts[0], cuts[1] - cuts[0]
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            grads = [torch.randn(n, s, s, c, device="cuda").to(dtype) for s in ppm_pool.SCALES]
+            run = lambda: ppm_pool.launch_band_backward(lib, grads, r0, hb, (h, w))  # noqa: E731
+            warm = _median_ms(run, torch)
+            cold = _median_ms(run, torch, flush)
+            plain = _median_ms(lambda: ppm_pool.pyramid_pool_band_backward_plain(
+                grads, r0, hb, (h, w)), torch)
+            dense = _median_ms(lambda: ppm_pool.launch_backward(lib, grads, (h, w)), torch, flush)
+            bound, bound_by = band_backward_bound_ms((n, hb, w, c), grads[0].element_size())
+            dev = _matching(_profiled(run, torch, flush, names=(BACKWARD_KERNEL,)),
+                            (BACKWARD_KERNEL,), f"pyramid_pool_band_backward {shape}")
+            if dev and sum(e.count for e in dev) != 10:
+                raise RuntimeError(f"pyramid_pool_band_backward {shape}: "
+                                   f"{[e.count for e in dev]} kernels for 10 calls")
+            out[(shape, bands, dt)] = (warm, cold, plain, bound, bound_by)
+            print(f"[time] pyramid_pool_band_backward rows [{r0}, {r0 + hb}) of {shape} "
+                  f"({len(cuts) - 1} bands) {dt}: kernel {warm:.4f} ms warm, {cold:.4f} ms cold; "
+                  f"bound {bound:.4f} ms ({bound_by}), share of bound {bound / cold:.3f} cold, "
+                  f"{bound / warm:.3f} warm; kernel under the profiler (cold) "
+                  f"{f'{dev[0].self_device_time_total / dev[0].count:.2f} us' if dev else 'not measured (no device activity recorded)'}"
+                  f"; plain {plain:.4f} ms; the dense backward on the whole map {dense:.4f} ms "
+                  f"cold (median of 50; card: {card})", flush=True)
+    return out
+
+
+def _split_batch(torch, seed, n, h, w, device):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    host = {"img_data": rng.randn(n, h, w, 3).astype(np.float32),
+            "seg_label": rng.randint(-1, 150, (n, h // 8, w // 8)).astype(np.int32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def _split_step(torch, ppm_pool, name, cfg, batch, spatial, device):
+    """One step from the seeded weights on ``batch``, dropout from step 0's
+    generator; the band paths' launches counted. Returns (loss, acc, the
+    SPLIT_GRADS gradients and every BN buffer on the CPU)."""
+    from semseg_tpu_torch.parallel import dropout_generator, train_step
+
+    state = _train_model(torch, cfg, device, spatial=spatial)
+    bands = len(spatial) if spatial else 0
+
+    def step():
+        m = train_step(state, batch, dropout_generator(0, 0))
+        return float(m["loss"]), float(m["acc"])
+
+    (loss, acc), _, dense, valid = _run_path(name, step, ppm_pool, torch, backward=0 if bands else 1,
+                                             band=bands, band_backward=bands)
+    if (dense, valid) != ((0, 0) if bands else (1, 0)):
+        raise RuntimeError(f"{name}: pool launches dense {dense} / valid {valid}")
+    params = dict(state.model.named_parameters())
+    grads = {k: params[k].grad.to("cpu", copy=True) for k in SPLIT_GRADS}
+    stats = {k: v.to("cpu", copy=True) for k, v in state.model.state_dict().items()
+             if "running" in k}
+    del state
+    torch.cuda.empty_cache()
+    return loss, acc, grads, stats
+
+
+def split_step_against_unsplit(torch, ppm_pool, card, devices, tag, shape=SPLIT_TRAIN):
+    """(b) and the multi-card check: one float32 step (TF32 off,
+    deterministic algorithms) of the flagship at full width on a batch of
+    ``shape`` (N, H, W), its images split over each device list of
+    ``devices``, against the unsplit step on cuda:0 from the same weights,
+    batch and dropout generator; each SPLIT_GRADS gradient within its
+    SPLIT_GRAD_LIMITS[shape] in relative norm. Returns the band launches."""
+    limits = SPLIT_GRAD_LIMITS[shape]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _cfg("TPU.compute_dtype", "float32")
+    dev0 = "cuda:0" if CARD == "cuda" else CARD
+    batch = _split_batch(torch, 15, *shape, dev0)
+    launches = 0
+    try:
+        with _deterministic(torch):
+            ref = _split_step(torch, ppm_pool, f"{tag} unsplit step", cfg, batch, None, dev0)
+            for spatial in devices:
+                got = _split_step(torch, ppm_pool, f"{tag} split step over {spatial}", cfg,
+                                  batch, spatial, dev0)
+                launches += len(spatial)
+                loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
+                grads = {k: float((got[2][k] - v).norm() / v.norm()) for k, v in ref[2].items()}
+                stat_rel, stat_key, iters_equal = 0.0, "", True
+                for k, b in ref[3].items():
+                    a = got[3][k]
+                    if k.endswith("_running_iter"):
+                        iters_equal = iters_equal and torch.equal(a, b)
+                        continue
+                    rel = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                    stat_rel, stat_key = max((stat_rel, stat_key), (rel, k))
+                print(f"{tag} {len(spatial)} bands on {sorted(set(map(str, spatial)))}, f32, "
+                      f"TF32 off, deterministic, batch {shape[0]} at {shape[1]}x{shape[2]}, "
+                      f"dropout on, against the unsplit step on {dev0}: loss {got[0]:.6f} vs "
+                      f"{ref[0]:.6f}, relative {loss_rel:.2e} (limit {LOSS_REL}); accuracy "
+                      f"{got[1]:.6f} vs {ref[1]:.6f} (limit {DP_ACC}); gradients, relative "
+                      f"norm error: "
+                      + ", ".join(f"{k} {v:.3e} (limit {limits[k]})" for k, v in grads.items())
+                      + f"; BN statistics max |d| / max {stat_rel:.2e} ({stat_key}; limit "
+                      f"{STAT_REL}); iter equal {iters_equal}; {len(spatial)} band forward and "
+                      f"{len(spatial)} band backward launches, no dense ones (card: {card})",
+                      flush=True)
+                if not (loss_rel < LOSS_REL and abs(got[1] - ref[1]) < DP_ACC
+                        and stat_rel < STAT_REL and iters_equal
+                        and all(v < limits[k] for k, v in grads.items())):
+                    raise RuntimeError(f"the split step over {spatial} disagrees with the "
+                                       "unsplit step")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return launches
+
+
+def split_loss_falls_and_timing(torch, ppm_pool, root, odgt, card):
+    """(c): bf16, the split step (2 bands on cuda:0) on one repeated batch
+    of phase 8's set for 5 steps under deterministic algorithms: the loss
+    falls. Then ms/step (default algorithms) unsplit and split in 2 and 4
+    bands on cuda:0 at SPLIT_TRAIN, median of SPLIT_TIMED_STEPS after one
+    warm-up step. Returns (the band launches, the times)."""
+    from semseg_tpu_torch.data import TrainDataset
+    from semseg_tpu_torch.parallel import dropout_generator, train_step
+
+    dev0 = "cuda:0" if CARD == "cuda" else CARD
+    cfg = _cfg(*_train_cfg_opts(root, odgt))
+    host = TrainDataset(root, odgt, cfg.DATASET, batch_per_gpu=2, seed=1,
+                        bucket_step=cfg.TPU.bucket_step, raw_transport=True).next_batch()
+    batch = {k: torch.from_numpy(v).to(dev0) for k, v in host.items()}
+    state = _train_model(torch, cfg, dev0, spatial=[dev0] * 2)
+
+    def five():
+        with _deterministic(torch):
+            return [float(train_step(state, batch, dropout_generator(0, i))["loss"])
+                    for i in range(5)]
+
+    losses, _, dense, valid = _run_path("split step, 2 bands, 5 steps on one batch", five,
+                                        ppm_pool, torch, band=10, band_backward=10)
+    print(f"[spatial-train] (c) one repeated batch {tuple(host['img_data'].shape)}, 2 bands on "
+          f"{dev0}, bf16, 5 steps under deterministic algorithms: losses "
+          f"{[round(x, 4) for x in losses]} (card: {card})", flush=True)
+    if not losses[-1] < losses[0] or (dense, valid) != (0, 0):
+        raise RuntimeError(f"the split step's loss did not fall: {losses} (dense {dense})")
+    del state
+    more, times = split_timing(torch, ppm_pool, [None, [dev0] * 2, [dev0] * 4], card,
+                               "[spatial-train] (c)")
+    return 10 + more, times
+
+
+def split_timing(torch, ppm_pool, lists, card, tag):
+    """ms/step and peak memory of the flagship's bf16 step at SPLIT_TRAIN
+    (default algorithms), unsplit (``None``) and split over each device
+    list of ``lists``: median of SPLIT_TIMED_STEPS after a warm-up step.
+    Returns (the band launches, {bands: (ms, GiB)})."""
+    import numpy as np
+
+    from semseg_tpu_torch.parallel import dropout_generator, train_step
+
+    dev0 = "cuda:0" if CARD == "cuda" else CARD
+    batch = _split_batch(torch, 16, *SPLIT_TRAIN, dev0)
+    steps = 1 + SPLIT_TIMED_STEPS
+    launches, times = 0, {}
+    for spatial in lists:
+        bands = len(spatial) if spatial else 0
+        state = _train_model(torch, _cfg(), dev0, spatial=spatial)
+
+        def run():
+            out = []
+            for i in range(steps):
+                torch.cuda.synchronize()
+                tic = time.perf_counter()
+                float(train_step(state, batch, dropout_generator(0, i))["loss"])
+                out.append(time.perf_counter() - tic)
+            return out
+
+        name = f"over {sorted(set(map(str, spatial)))} in {bands} bands" if bands else "unsplit"
+        seconds, _, _, _ = _run_path(f"{tag} {name}, {steps} steps", run, ppm_pool, torch,
+                                     backward=0 if bands else steps, band=bands * steps,
+                                     band_backward=bands * steps)
+        launches += bands * steps
+        times[name] = (float(np.median(seconds[1:])) * 1e3,
+                       torch.cuda.max_memory_allocated() / 2**30)
+        del state
+        torch.cuda.empty_cache()
+    print(f"{tag} ms/step, flagship bf16, batch {SPLIT_TRAIN[0]} at "
+          f"{SPLIT_TRAIN[1]}x{SPLIT_TRAIN[2]}, median of {SPLIT_TIMED_STEPS} after a warm-up "
+          f"(peak device memory of the first card): " + "; ".join(
+              f"{k} {t:.1f} ms, {m:.2f} GiB" for k, (t, m) in times.items())
+          + f" (card: {card})", flush=True)
+    return launches, times
+
+
+def split_train_cli(work, torch, ppm_pool, root, odgt, card):
+    """(d): ``cli.train --device cuda:0 ... TPU.spatial 2``, one epoch of
+    phase 8's data and settings, writes its checkpoint pair. Returns the
+    band launches."""
+    import numpy as np
+
+    from semseg_tpu_torch.cli import train as train_cli
+
+    out = os.path.join(work, "spatial_train")
+    dev0 = "cuda:0" if CARD == "cuda" else CARD
+    want = 2 * TRAIN_ITERS
+    (state, history), wall, dense, valid = _run_path(
+        "cli.train --device cuda:0 TPU.spatial 2", lambda: train_cli.main(
+            ["--cfg", CFG, "--device", dev0, "--devices", "1", "DIR", out,
+             *_train_cfg_opts(root, odgt), "TRAIN.num_epoch", "1", "TPU.spatial", "2"]),
+        ppm_pool, torch, band=want, band_backward=want)
+    losses = history["train"]["loss"]
+    pair = [os.path.join(out, f"{p}_epoch_1.pth") for p in ("encoder", "decoder")]
+    if (dense, valid) != (0, 0) or not all(np.isfinite(losses)) or not all(
+            os.path.exists(p) for p in pair) or state.step != TRAIN_ITERS:
+        raise RuntimeError(f"cli.train TPU.spatial 2: launches {dense}/{valid}, losses "
+                           f"{losses}, files {os.listdir(out)}")
+    print(f"[spatial-train] (d) cli.train --device {dev0} TPU.spatial 2: {TRAIN_ITERS} steps "
+          f"at batch 2, bf16, full width, losses at the display steps "
+          f"{[round(x, 4) for x in losses]}; {want} band forward and {want} band backward "
+          f"launches, no dense ones; wrote the epoch_1 pair; {wall:.1f} s wall (model build "
+          f"and loader start included; card: {card})", flush=True)
+    return want
+
+
+def spatial_train_phase(work, torch, ppm_pool, card, root, odgt):
+    """Phase 13: (a)-(d) above. Returns (the band forward and band backward
+    launches of the training paths, the band backward's largest error
+    from its plain version, its times, ms/step split and unsplit)."""
+    start = time.perf_counter()
+    band_err = check_band_kernel(ppm_pool, torch, [
+        (shape, [list(shape[1:3])] * shape[0], _cuts(shape, bands))
+        for shape, bands in SPLIT_BAND_CHECKS], "[spatial-train]")
+    err = check_band_backward_kernel(ppm_pool, torch)
+    times = time_band_backward(ppm_pool, torch, card)
+    dev0 = "cuda:0" if CARD == "cuda" else CARD
+    launches = sum(split_step_against_unsplit(torch, ppm_pool, card, [[dev0] * 2, [dev0] * 4],
+                                              "[spatial-train] (b)", shape)
+                   for shape in SPLIT_GRAD_LIMITS)
+    more, step_ms = split_loss_falls_and_timing(torch, ppm_pool, root, odgt, card)
+    launches += more + split_train_cli(work, torch, ppm_pool, root, odgt, card)
+    print(f"[spatial-train] phase 13 took {time.perf_counter() - start:.1f} s (card: {card})",
+          flush=True)
+    return launches, err, times, step_ms, band_err
+
+
+def spatial_train_multi_card(work, torch, ppm_pool, card, root, odgt, n):
+    """The multi-card check's training part: the split step with its bands
+    on distinct cards against one card (as (b)), then ``cli.train --device
+    cuda TPU.spatial 2`` over the cards (n / 2 data groups, one rank each)
+    for one epoch."""
+    import numpy as np
+
+    from semseg_tpu_torch.cli import train as train_cli
+
+    lists = [[f"cuda:{j}" for j in range(b)] for b in (2, 4) if b <= n]
+    for shape in SPLIT_GRAD_LIMITS:
+        split_step_against_unsplit(torch, ppm_pool, card, lists, "[multi] spatial step,", shape)
+    split_timing(torch, ppm_pool, [None] + lists, card, "[multi] spatial step,")
+    out = os.path.join(work, "multi_spatial_train")
+    tic = time.perf_counter()
+    result = train_cli.main(["--cfg", CFG, "--devices", str(n // 2), "DIR", out,
+                             *_train_cfg_opts(root, odgt),
+                             "TRAIN.num_epoch", "1", "TRAIN.disp_iter", "1", "TRAIN.workers",
+                             "1", "TPU.spatial", "2"])
+    wall = time.perf_counter() - tic
+    with open(os.path.join(out, "history_epoch_1.json")) as f:
+        losses = json.load(f)["train"]["loss"]
+    if len(losses) != TRAIN_ITERS or not np.all(np.isfinite(losses)) \
+            or not os.path.exists(os.path.join(out, "encoder_epoch_1.pth")):
+        raise RuntimeError(f"cli.train TPU.spatial 2 over {n} cards: result {result}, "
+                           f"losses {losses}")
+    print(f"[multi] cli.train TPU.spatial 2 over {n} cards ({n // 2} data group(s) of 2 "
+          f"cards): {TRAIN_ITERS} steps at batch 2 per group, bf16, full width; per-step "
+          f"global losses {losses}; {wall:.1f} s wall (spawn, model builds and the "
+          f"checkpoint included; card: {card})", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2956,6 +3385,10 @@ def main(argv=None) -> int:
             launches[form] += slice_launches[form]
         band_launches, _, band_times = spatial_phase(work, torch, ppm_pool, card, ckpt,
                                                      val_dir, odgt, compare)
+        split_launches, band_backward_err, band_backward_times, _, train_band_err = \
+            spatial_train_phase(work, torch, ppm_pool, card, train_root, train_odgt)
+        band_launches += split_launches
+        band_err = max(band_err, train_band_err)
         if torch.cuda.device_count() > 1:
             multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_root,
                              train_odgt)
@@ -2996,6 +3429,15 @@ def main(argv=None) -> int:
          # bf16, the first of 2 bands; no single PyTorch call computes the
          # sums.
          **timed(band_times[(2, "bfloat16")]), "library_ms": None},
+        {"name": "pyramid_pool_band_backward", **entry,
+         # No Pallas backward exists: under the hybrid mesh JAX
+         # differentiates XLA's pool over the sharded height.
+         "replaces": "semseg_tpu/ops/pool.py:55",
+         "launches": split_launches, "max_abs_err": band_backward_err,
+         # bf16, the first of 2 bands of the flagship's batch-2 training
+         # map; no single PyTorch call computes a band's input gradient.
+         **timed(band_backward_times[(BAND_BACKWARD_TIMED[0][0], 2, "bfloat16")]),
+         "library_ms": None},
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -35,9 +35,19 @@ Runs on the card unless ``--device cpu``. ``--profile DIR`` writes a
 ``torch.profiler`` trace of rank 0's first steps. ``TPU.remat`` recomputes
 each ResNet block's activations in the backward
 (``models.resnet.ResBlock``); ``TPU.train_fast_decode`` decodes training
-JPEGs at a reduced scale (``data.TrainDataset``). ``TPU.spatial`` > 1 (the
-JAX trainer's hybrid data x height mesh) is not ported and raises; the
-eval half of the height split is ``cli.eval --spatial``.
+JPEGs at a reduced scale (``data.TrainDataset``).
+
+``TPU.spatial S`` > 1 is the JAX trainer's hybrid data x spatial mesh
+(``semseg_tpu/cli/train.py:41-69``, ``build_train_mesh``): each image's
+height is split in S row bands, and each rank is one data group that
+drives its S devices (``parallel.train_step``, ``parallel/spatial.py``).
+``TPU.data_parallel`` or ``--devices`` count the data groups; without
+either, every visible card divided by S, which must divide it. With a bare
+``--device cuda`` rank r's bands run on cards ``[r*S, (r+1)*S)``; with
+``cuda:K`` or ``cpu`` every band runs on that device (one data group
+unless a count is given). As in JAX, the hybrid mesh is single-host
+(``--multihost`` raises), and ``TPU.remat`` has no banded form yet (ROADMAP
+item 17e).
 """
 
 from __future__ import annotations
@@ -184,6 +194,29 @@ def rank_count(device, requested: int, data_parallel: int = 0) -> int:
     return distributed.visible_cards(n or torch.cuda.device_count())
 
 
+def train_mesh(device, requested: int, data_parallel: int = 0, spatial: int = 1):
+    """(data groups, spatial): JAX's ``build_train_mesh`` shape. Without
+    ``spatial`` the ranks of ``rank_count``; with it ``TPU.data_parallel``
+    or ``--devices`` data groups, else (on cards) every visible card
+    divided by ``spatial``, which must divide it; on the CPU or one named
+    card one group unless a count is given."""
+    if spatial <= 1:
+        return rank_count(device, requested, data_parallel), 1
+    groups = data_parallel or requested
+    d = torch.device(device)
+    if d.type != "cuda" or d.index is not None:
+        return max(groups, 1), spatial
+    total = distributed.visible_cards(torch.cuda.device_count())
+    if not groups:
+        if total % spatial:
+            raise ValueError(f"TPU.spatial={spatial} must divide the device count {total}")
+        groups = total // spatial
+    if groups * spatial > total:
+        raise ValueError(f"{groups} data groups x TPU.spatial {spatial} need "
+                         f"{groups * spatial} cards; {total} visible")
+    return groups, spatial
+
+
 def load_cfg(args):
     """The config of ``args``: defaults < ``--cfg`` < ``opts``."""
     cfg = _default_cfg.clone()
@@ -197,8 +230,12 @@ def _rank_main(rank, args, world, port):
     """Rank ``rank`` of ``--devices world`` (``torch.multiprocessing.spawn``)."""
     if torch.device(args.device).type == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    run(args, dict(coordinator_address=f"127.0.0.1:{port}", num_processes=world,
-                   process_id=rank))
+    rendezvous = dict(coordinator_address=f"127.0.0.1:{port}", num_processes=world,
+                      process_id=rank)
+    spatial = load_cfg(args).TPU.spatial
+    if spatial > 1:  # the rank's device is its group's first
+        rendezvous["device"] = distributed.group_devices(args.device, rank, spatial)[0]
+    run(args, rendezvous)
 
 
 def run(args, rendezvous=None):
@@ -208,7 +245,7 @@ def run(args, rendezvous=None):
     if rendezvous is None:
         return _train(args, torch.device(args.device), None)
     joined = not dist.is_initialized()
-    device = distributed.initialize(**rendezvous, device=args.device)
+    device = distributed.initialize(**{"device": args.device, **rendezvous})
     joined = joined and dist.is_initialized()
     try:
         return _train(args, device, dist.group.WORLD if dist.is_initialized() else None)
@@ -228,10 +265,16 @@ def _train(args, device, group):
             f.write(cfg.dump())
     np.random.seed(cfg.TRAIN.seed)
     torch.manual_seed(cfg.TRAIN.seed)
-    logger.info(f"Mesh: {world} device(s) / {world} process(es); global batch "
-                f"{cfg.TRAIN.batch_size_per_gpu * world}"
+    spatial = cfg.TPU.spatial
+    bands = distributed.group_devices(args.device, rank, spatial) if spatial > 1 else None
+    if bands is not None:
+        device = bands[0]
+    logger.info(f"Mesh: {world * spatial} device(s)"
+                + (f" ({world}-way data x {spatial}-way spatial)" if bands else "")
+                + f" / {world} process(es); global batch {cfg.TRAIN.batch_size_per_gpu * world}"
                 + (f" x {cfg.TPU.grad_accum} grad-accum microbatches"
-                   if cfg.TPU.grad_accum > 1 else "") + f"; rank 0 on {device}")
+                   if cfg.TPU.grad_accum > 1 else "") + f"; rank 0 on {device}"
+                + (f", its bands on {[str(d) for d in bands]}" if bands else ""))
 
     model = ModelBuilder.build_model(cfg, device=device, seed=cfg.TRAIN.seed)
     if cfg.MODEL.pretrained_encoder and not cfg.MODEL.weights_encoder \
@@ -240,7 +283,7 @@ def _train(args, device, group):
         if path:
             load_pretrained_encoder(model.encoder, path)
             logger.info(f"Encoder initialised from {path}")
-    state = create_train_state(cfg, model, group)
+    state = create_train_state(cfg, model, group, spatial_devices=bands)
     # A resumed run's history holds only the epochs it runs, as in the JAX CLI.
     history = {"train": {"epoch": [], "loss": [], "acc": []}}
     if cfg.TRAIN.start_epoch > 0:
@@ -305,32 +348,37 @@ def parse_args(argv=None):
     return args
 
 
-def refuse_spatial(spatial: int) -> None:
-    """``TPU.spatial`` > 1 (``semseg_tpu/cli/train.py:41-69``: each image's
-    height sharded over a hybrid data x spatial mesh) is not ported: raise
-    rather than train without it."""
-    if spatial > 1:
+def check_spatial(cfg, multihost: bool) -> None:
+    """What ``TPU.spatial`` > 1 cannot combine with: several hosts (as in
+    JAX, ``semseg_tpu/cli/train.py:52-56``) and remat (no banded form yet)."""
+    if cfg.TPU.spatial <= 1:
+        return
+    if multihost:
+        raise NotImplementedError("TPU.spatial hybrid training is single-host; combine "
+                                  "--multihost with pure data parallelism instead")
+    if cfg.TPU.remat:
         raise NotImplementedError(
-            f"TPU.spatial {spatial}: training with each image's height split across cards "
-            "is not ported yet (ROADMAP item 17b; cli.eval --spatial runs the eval half); "
-            "leave it at 1 (data parallelism: --devices)")
+            f"TPU.remat with TPU.spatial {cfg.TPU.spatial}: the banded forward has no remat "
+            "yet (ROADMAP item 17e); drop one of the two")
 
 
 def main(argv=None):
     """Trains as ``argv`` says; returns ``(state, history)`` when this
     process trained, None when it started ranks that did."""
     args = parse_args(argv)
+    cfg = load_cfg(args)
+    check_spatial(cfg, args.multihost)
     if args.multihost:
         return run(args, {})
-    cfg = load_cfg(args)
-    refuse_spatial(cfg.TPU.spatial)
     asked = cfg.TPU.data_parallel or args.devices
-    ranks = rank_count(args.device, args.devices, cfg.TPU.data_parallel)
+    ranks, spatial = train_mesh(args.device, args.devices, cfg.TPU.data_parallel,
+                                cfg.TPU.spatial)
     if ranks < asked:
         setup_logger().info(f"{ranks} card(s) visible: training on {ranks} of the "
                             f"{asked} asked for")
     elif not asked and ranks > 1:
-        setup_logger().info(f"training on every visible card: {ranks}")
+        setup_logger().info(f"training on every visible card: {ranks}"
+                            + (f" data groups of {spatial} cards" if spatial > 1 else ""))
     if ranks == 1:
         return run(args)
     torch.multiprocessing.spawn(_rank_main, args=(args, ranks, distributed.free_port()),

@@ -136,6 +136,19 @@
 // same. No atomics: repeated runs agree bit for bit. Odd C or unaligned
 // pointers take scalar stores.
 //
+// Band backward (ppm_pool_band_backward_launch), for training with each
+// image's height split in bands (cli.train TPU.spatial): rows [row0, row0
+// + hb) of the backward above, written to an (N, hb, W, C) band. Bins and
+// reciprocal areas stay those of the whole H-row map, so each element is
+// the same terms in the same order with the same host-rounded reciprocals
+// as the dense backward's: its rows, bit for bit. The host cuts the map's
+// row segments at the band's edges and the blocks take units of those
+// clipped segments, so no block stores outside the band (a clipped
+// segment's rows lie in the bins its whole segment lies in); the kernel is
+// the dense backward's, which offsets its stores by the band's first row.
+// Under the hybrid mesh the JAX package differentiates XLA's pool
+// (semseg_tpu/ops/pool.py:55) over the sharded height.
+//
 // Built with nvcc into a shared library with a plain C interface; see
 // semseg_tpu_torch/ops/kernels/ppm_pool.py for the wrapper.
 
@@ -616,6 +629,7 @@ struct BackwardPlan {
   BinInv inv;
   int rb[kCands], cb[kCands];  // segment boundaries of h and of w
   int nr, nc;                  // segments
+  int row0, rows;              // rows [row0, row0 + rows) of the map are written (the band)
   int unit0[kCands];           // units of a sample before row segment a; unit0[nr] all
   int chunk;                   // rows of a unit, at most
   int parts;                   // groups of column segments
@@ -690,7 +704,7 @@ ppm_pool_backward_kernel(const T* __restrict__ g1, const T* __restrict__ g2,
     add_scale_staged<3, T, kVec>(acc, gbin, p.inv, r0, c0, h, w, live);
     add_scale_staged<6, T, kVec>(acc, gbin, p.inv, r0, c0, h, w, live);
     const int pixels = (r_hi - r_lo) * cw;
-    T* base = dx + ((size_t)n * h + r_lo) * row_stride + (size_t)c0 * c;
+    T* base = dx + ((size_t)n * p.rows + (r_lo - p.row0)) * row_stride + (size_t)c0 * c;
     if constexpr (kVec) {
       cell[b - b_lo][tx] = pack16(acc);
       // The lanes' writes, made by the threads, are read by the bulk copies.
@@ -739,10 +753,12 @@ int sm_count() {
   return sms;
 }
 
+// Rows [row0, row0 + hb) of the input gradient of an (n, h, w, c) map
+// into dx, (n, hb, w, c); the dense backward is the band [0, h).
 template <typename T>
 cudaError_t launch_backward(const void* g1, const void* g2, const void* g3,
                             const void* g6, void* dx, int n, int h, int w, int c,
-                            cudaStream_t stream) {
+                            int row0, int hb, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kTile = 32 * V;
   const bool vec = c % V == 0 &&
@@ -759,7 +775,18 @@ cudaError_t launch_backward(const void* g1, const void* g2, const void* g3,
         p.inv.v[first_bin(sc) + i * sc + j] = (float)(1.0 / area);
       }
   }
-  p.nr = host_bounds(h, p.rb);
+  // The map's row segments cut at the band's edges: the band's own.
+  int full[kCands];
+  const int nfull = host_bounds(h, full);
+  p.row0 = row0;
+  p.rows = hb;
+  p.nr = 0;
+  p.rb[0] = row0;
+  for (int k = 1; k <= nfull; ++k)
+    if (full[k] > row0) {
+      p.rb[++p.nr] = std::min(full[k], row0 + hb);
+      if (full[k] >= row0 + hb) break;
+    }
   p.nc = host_bounds(w, p.cb);
   // A unit is a whole row segment; halve the units' rows while the grid
   // has fewer than two blocks an SM or a unit more than 128 KB (a block
@@ -1110,9 +1137,25 @@ int ppm_pool_backward_launch(const void* g1, const void* g2, const void* g3,
                              int dtype, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_backward<float>(g1, g2, g3, g6, dx, n, h, w, c, s);
+  if (dtype == 0) return (int)launch_backward<float>(g1, g2, g3, g6, dx, n, h, w, c, 0, h, s);
   if (dtype == 1)
-    return (int)launch_backward<__nv_bfloat16>(g1, g2, g3, g6, dx, n, h, w, c, s);
+    return (int)launch_backward<__nv_bfloat16>(g1, g2, g3, g6, dx, n, h, w, c, 0, h, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Band backward: rows [row0, row0 + hb) of the input gradient above, into
+// dx, the (N, hb, W, C) contiguous band; the gradients and the dtype's
+// code as above. Returns the cudaError_t of the launch.
+int ppm_pool_band_backward_launch(const void* g1, const void* g2, const void* g3,
+                                  const void* g6, void* dx, int n, int h, int w, int c,
+                                  int row0, int hb, int dtype, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || hb <= 0 || row0 < 0 || row0 + hb > h)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_backward<float>(g1, g2, g3, g6, dx, n, h, w, c, row0, hb, s);
+  if (dtype == 1)
+    return (int)launch_backward<__nv_bfloat16>(g1, g2, g3, g6, dx, n, h, w, c, row0, hb, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,8 +30,17 @@ over a conv5 split in row bands across devices (``cli.eval --spatial``,
 band form of the pool kernel, added on the first band's device and divided
 by the bin areas there, the branch convs run on the small grids, each band
 upsamples its own rows of them, and the 3x3 convs take their halo rows.
-UPerNet's cross-resolution resizes have no banded form yet (ROADMAP item
-17c).
+``banded_train_logits`` is their training forward over banded conv4 and
+conv5 (``cli.train TPU.spatial``), with the one decoder for every band:
+the pyramid pools through ``pyramid_pool_bands`` (the band form over the
+whole map, differentiable through the band backward kernel), the branch
+conv-BN-ReLU runs once on the small grids on the first band's device, each
+band computes its rows of the grids' bilinear upsample to the whole map
+(``resize_bilinear_rows``: the unsplit forward's ``resize_bilinear`` rows
+to rounding, from the grid rows they read), and the deep-supervision head
+runs banded over conv4, after the trunk, so that dropout draws its masks in
+the unsplit order. UPerNet's cross-resolution
+resizes have no banded form yet (ROADMAP item 17c).
 
 Slot names follow the reference: ``cbr`` and ``cbr_deepsup`` are
 ``conv3x3_bn_relu`` Sequentials; PPM's ``ppm.{i}`` is ``Sequential(pool,
@@ -55,10 +64,11 @@ from semseg_tpu_torch.ops.kernels.ppm_pool import (
     band_sums_to_grids,
     pyramid_pool,
     pyramid_pool_band,
+    pyramid_pool_bands,
 )
-from semseg_tpu_torch.ops.resize import resize_bilinear
+from semseg_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_rows
 from semseg_tpu_torch.ops.resize_dynamic import upsample_grid_valid
-from semseg_tpu_torch.parallel.spatial import Bands, run_banded
+from semseg_tpu_torch.parallel.spatial import Bands, band_apply, band_conv, run_banded
 from .layers import BatchNorm2d, Conv2d, ConvBN, Dropout2d, _Act
 
 
@@ -261,3 +271,37 @@ def banded_logits(decoders, conv5: Bands, valid) -> Bands:
     else:  # UPerNet's cross-resolution resizes have no banded form yet
         raise NotImplementedError(f"banded {type(d).__name__} (ROADMAP item 17c)")
     return x.map(lambda p: p.to(acc_dtype(p.dtype)))
+
+
+def _banded_ppm_train_trunk(d: PPM, conv5: Bands) -> Bands:
+    """``PPM._trunk`` (training, whole-map pools) over a banded conv5."""
+    hw = (conv5.height, conv5.parts[0].shape[3])
+    grids = pyramid_pool_bands([p.permute(0, 2, 3, 1).contiguous() for p in conv5.parts])
+    branches = [branch[1:](g.permute(0, 3, 1, 2)) for branch, g in zip(d.ppm, grids)]
+    parts = []
+    for part, (r0, r1) in zip(conv5.parts, conv5.rows):
+        ups = [resize_bilinear_rows(y.to(part.device, non_blocking=True), hw, (r0, r1))
+               for y in branches]
+        parts.append(torch.cat([part] + ups, dim=1))
+    return run_banded([d.conv_last], Bands(parts, conv5.plan, conv5.stride))
+
+
+def banded_train_logits(d, conv4: Bands, conv5: Bands):
+    """The training forward of C1, C1DeepSup, PPM or PPMDeepsup ``d`` over
+    banded conv4 and conv5 (see the module docstring): f32 logits at
+    decoder resolution as ``Bands``, and the deep-supervision logits where
+    ``d`` has them and is in training mode (else None)."""
+    if isinstance(d, PPM):
+        x = _banded_ppm_train_trunk(d, conv5)
+    elif isinstance(d, C1):
+        x = run_banded([d.conv_last], run_banded([d.cbr], conv5))
+    else:  # UPerNet's cross-resolution resizes have no banded form yet
+        raise NotImplementedError(f"banded {type(d).__name__} (ROADMAP item 17c)")
+    logits = x.map(lambda p: p.to(acc_dtype(p.dtype)))
+    if not (d.training and hasattr(d, "cbr_deepsup")):
+        return logits, None
+    ds = run_banded([d.cbr_deepsup], conv4)
+    if hasattr(d, "dropout_deepsup"):
+        ds = band_apply([d.dropout_deepsup], ds)
+    ds = band_conv([d.conv_last_deepsup], ds)
+    return logits, ds.map(lambda p: p.to(acc_dtype(p.dtype)))

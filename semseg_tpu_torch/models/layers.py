@@ -8,6 +8,14 @@ float32 and casts back to the input dtype.
 
 Module and slot names follow the reference's ``state_dict`` keys, so its
 ``.pth`` files load with ``load_state_dict(strict=True)``.
+
+The modules whose output pixel depends on their input pixel alone in eval
+(``ROWWISE``: batch norm, dropout, the activations) also run over a map
+held as row bands (``parallel/spatial.band_apply``): ``forward_bands``
+takes the bands, each on its device, and returns them transformed, reading
+the module's parameters on each band's device. In training a batch norm's
+statistics are then the whole map's and dropout's channel mask is drawn
+once for all the bands (``cli.train TPU.spatial``).
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 
-from semseg_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train
+from semseg_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train_bands
 
 
 _recompute = threading.local()
@@ -58,7 +66,9 @@ class Dropout2d(nn.Module):
     generator is used. With ``process_group`` (data parallelism, every rank
     at batch N) rank r draws the global batch's (N * ranks, C) mask and keeps
     its rows [r*N, (r+1)*N): the ranks' masks are those of one process at
-    the global batch, not copies of one another.
+    the global batch, not copies of one another. Over bands
+    (``forward_bands``) the (N, C) mask is drawn once and applied to each
+    band, so a split map drops the channels the whole map would.
     """
 
     # In eval each output pixel depends on its input pixel alone, so the
@@ -73,20 +83,24 @@ class Dropout2d(nn.Module):
         self.process_group = None
 
     def forward(self, x):
+        return self.forward_bands([x])[0]
+
+    def forward_bands(self, parts):
         if not self.training or self.p == 0.0:
-            return x
-        n, c = x.shape[:2]
+            return list(parts)
+        n, c = parts[0].shape[:2]
         rank, world = 0, 1
         if self.process_group is not None:
             rank = dist.get_rank(self.process_group)
             world = dist.get_world_size(self.process_group)
         keep = torch.rand(n * world, c, generator=self.generator)[rank * n:(rank + 1) * n] >= self.p
-        if x.is_cuda:
+        keep = keep.view(n, c, 1, 1)
+        if any(x.is_cuda for x in parts):
             # A copy from pinned memory does not make the host wait for the
             # card's queue to drain, as one from pageable memory does.
             keep = keep.pin_memory()
-        keep = keep.to(x.device, non_blocking=True).view(x.shape[0], x.shape[1], 1, 1)
-        return torch.where(keep, x / (1.0 - self.p), 0.0)
+        return [torch.where(keep.to(x.device, non_blocking=True), x / (1.0 - self.p), 0.0)
+                for x in parts]
 
     def extra_repr(self):
         return f"p={self.p}"
@@ -108,6 +122,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     by the reference's bias-corrected EMA (momentum 0.001). With
     ``process_group`` (data parallelism) the batch is every rank's: the
     statistics are all-reduced, and every rank keeps the same running ones.
+
+    Over bands (``forward_bands``, each band on its device) the statistics
+    are the whole map's (``ops.norm.batch_norm_train_bands``) and the
+    running statistics advance once.
 
     Buffers: ``nn.BatchNorm2d``'s, plus ``_running_iter`` (shape (1,),
     default 1), the EMA's bias-correction accumulator under the reference's
@@ -135,22 +153,25 @@ class BatchNorm2d(nn.BatchNorm2d):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x):
+        return self.forward_bands([x])[0]
+
+    def forward_bands(self, parts):
         if not self.training:
-            return batch_norm_inference(
-                x, self.weight, self.bias, self.running_mean, self.running_var,
-                eps=self.eps,
-            )
-        y, mean, var, it = batch_norm_train(
-            x, self.weight, self.bias, self.running_mean, self.running_var,
+            return [batch_norm_inference(
+                x, *(t.to(x.device, non_blocking=True) for t in (
+                    self.weight, self.bias, self.running_mean, self.running_var)),
+                eps=self.eps) for x in parts]
+        ys, mean, var, it = batch_norm_train_bands(
+            parts, self.weight, self.bias, self.running_mean, self.running_var,
             self._running_iter, eps=self.eps, momentum=self.momentum,
             group=self.process_group,
         )
         if in_recompute():
-            return y
+            return ys
         self.running_mean.copy_(mean)
         self.running_var.copy_(var)
         self._running_iter.copy_(it)
-        return y
+        return ys
 
 
 _ACTS = {"relu": F.relu, "relu6": F.relu6}
@@ -175,6 +196,9 @@ class _Act(nn.Module):
 
     def forward(self, x):
         return apply_act(x, self.act)
+
+    def forward_bands(self, parts):
+        return [apply_act(x, self.act) for x in parts]
 
     def extra_repr(self):
         return self.act

@@ -12,10 +12,13 @@
   five maps of 24, 32, 64, 160 and 320 channels; C1DeepSup's
   deep-supervision branch reads ``conv_out[-2]``.
 
-``banded_conv5`` is the eval forward of an image split in row bands across
-devices (``cli.eval --spatial``, ``parallel/spatial.py``), through the same
-modules: each conv (depthwise and dilated ones included) with its halo
-rows, BN, ReLU6 and the residual add per band.
+``banded_features`` is the forward of an image split in row bands across
+devices (``parallel/spatial.py``), in eval (``cli.eval --spatial``, a copy
+of the encoder per band's device) and in training (``cli.train
+TPU.spatial``, the one encoder for every band), through the same modules:
+each conv (depthwise and dilated ones included) with its halo rows, BN
+(over the whole map in training), ReLU6 and the residual add per band. It
+returns the deep-supervision map (after block 14) and the last one.
 
 Keys are the reference's: ``features.0.{0,1}`` for the stem, then
 ``features.{i}.conv.{k}`` with the block's Sequential indices (t == 1:
@@ -126,15 +129,19 @@ def mobilenetv2dilated(**kw):
     return MobileNetV2Encoder(dilate_scale=8, **kw)
 
 
-def banded_conv5(encoders: Sequence[MobileNetV2Encoder], x: Bands) -> Bands:
-    """The last feature map of ``MobileNetV2Encoder.forward`` (eval) over an
-    image in row bands; ``encoders[j]`` is band j's copy. Output stride 8
-    only (a band plan cuts strides 1-8)."""
+def banded_features(encoders: Sequence[MobileNetV2Encoder], x: Bands):
+    """The last two feature maps of ``MobileNetV2Encoder.forward`` (after
+    block ``DOWN_IDX[-1]`` and the last block) over an image in row bands;
+    ``encoders[j]`` is band j's copy, or ``[encoder]`` the one encoder of
+    every band. Output stride 8 only (a band plan cuts strides 1-8)."""
     x = x.map(lambda p: p.to(encoders[0].dtype))
-    for blocks in zip(*(e.features for e in encoders)):
+    conv4 = None
+    for idx, blocks in enumerate(zip(*(e.features for e in encoders))):
         if isinstance(blocks[0], InvertedResidual):
             out = run_banded([b.conv for b in blocks], x)
             x = x.zip(out, torch.add) if blocks[0].use_res else out
         else:  # the stem's ConvBN
             x = run_banded(blocks, x)
-    return x
+        if idx == DOWN_IDX[-1]:
+            conv4 = x
+    return conv4, x

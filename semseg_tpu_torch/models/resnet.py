@@ -16,10 +16,13 @@ and recomputed in the backward, for less activation memory at the cost of
 a second forward through the blocks. Eval is unchanged. BN's running
 statistics advance once per forward (``layers.recomputing``).
 
-``banded_conv5`` is the eval forward of an image split in row bands across
-devices (``cli.eval --spatial``, ``parallel/spatial.py``): the same
-modules' parameters, each conv with its halo rows, BN, ReLU and the
-residual add per band.
+``banded_features`` is the forward of an image split in row bands across
+devices (``parallel/spatial.py``), in eval (``cli.eval --spatial``, with
+one copy of the encoder per band's device) and in training (``cli.train
+TPU.spatial``, the one encoder for every band): the same modules'
+parameters, each conv with its halo rows, BN (over the whole map in
+training), ReLU and the residual add per band. It returns conv4 and conv5,
+which the deep-supervision decoders read. Remat has no banded form yet.
 
 Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
 ``layer3.0.downsample.0``), so its checkpoints load as they are. The encoder
@@ -179,20 +182,24 @@ def _banded_block(blocks: Sequence[ResBlock], x: Bands) -> Bands:
     return out.zip(residual, lambda o, r: F.relu(o + r))
 
 
-def banded_conv5(encoders: Sequence[ResNetEncoder], x: Bands) -> Bands:
-    """conv5 of ``ResNetEncoder.forward`` (eval) over an image in row bands;
-    ``encoders[j]`` is band j's copy of the encoder. Output stride 8 only
-    (``dilate_scale=8``): a band plan cuts strides 1-8."""
+def banded_features(encoders: Sequence[ResNetEncoder], x: Bands):
+    """(conv4, conv5) of ``ResNetEncoder.forward`` over an image in row
+    bands; ``encoders[j]`` is band j's copy of the encoder, or
+    ``[encoder]`` the one encoder of every band (module docstring).
+    Output stride 8 only (``dilate_scale=8``): a band plan cuts strides
+    1-8."""
     enc = encoders[0]
     x = x.map(lambda p: p.to(enc.dtype))
     for i in (1, 2, 3):
         conv = [getattr(e, f"conv{i}") for e in encoders]
         x = band_apply([getattr(e, f"bn{i}") for e in encoders], band_conv(conv, x)).map(F.relu)
     x = band_max_pool(x, kernel_size=3, stride=2, padding=1)
+    features = []
     for stage in ("layer1", "layer2", "layer3", "layer4"):
         for blocks in zip(*(getattr(e, stage) for e in encoders)):
             x = _banded_block(blocks, x)
-    return x
+        features.append(x)
+    return features[2], features[3]
 
 
 def resnet18(**kw):

@@ -28,8 +28,24 @@ its own kernel (``ppm_band_kernel``): a block per 16 channels stages the
 band's rows in shared memory, some of its warps copying while the others
 sum the rows that have arrived, so nothing but the sums is allocated.
 
-The four forms are registered operators, ``semseg_tpu_torch::pyramid_pool``,
-``::pyramid_pool_valid``, ``::pyramid_pool_band`` and ``::pyramid_pool_backward``
+Band backward (``pyramid_pool_band_backward``): rows ``[row0, row0 + hb)``
+of the dense form's input gradient, for training with each image's height
+split in bands (``cli.train TPU.spatial``). It is the backward kernel with
+its stores clipped to the band, so a band's rows are bit for bit the dense
+backward's: the same terms in the same order, with the reciprocal areas of
+the whole map rounded once on the host. ``pyramid_pool_bands`` is the
+differentiable banded pool of training, one ``torch.autograd.Function``
+around the whole of it: each band's band-form sums over the whole map's
+bins (training pools unmasked canvases), added on the first band's device
+and turned into the grids there; its backward sends the four grid
+gradients to each band's device and launches the band backward there.
+The boundary sits around the whole pool, not around one band's sums,
+because autograd's gradient of ``band_sums_to_grids`` (``g / area``
+through the sums) rounds apart from the dense backward's reciprocals.
+
+The five forms are registered operators, ``semseg_tpu_torch::pyramid_pool``,
+``::pyramid_pool_valid``, ``::pyramid_pool_band``, ``::pyramid_pool_backward``
+and ``::pyramid_pool_band_backward``
 (``torch.library.custom_op``), each with a fake implementation that gives
 its output shapes, so ``torch.export`` keeps each call as one node and an
 exported program launches the kernel (``serving.py``). The dense operator's
@@ -44,7 +60,8 @@ bytes of ``grad_x`` written. The JAX
 package has no backward for its Pallas kernel; it differentiates XLA's
 integral-image pool (``semseg_tpu/ops/pool.py:55``), which computes the
 same sum. The pad-aware form is inference only (the JAX package trains on
-unmasked canvases): with ``valid_hw``, an input that requires grad raises.
+unmasked canvases): with ``valid_hw``, an input that requires grad raises,
+as does the pad-aware band form ``pyramid_pool_band``.
 
 Each operator's CPU implementation is the plain version; its CUDA
 implementation checks the inputs (raising, never copying), launches the
@@ -70,12 +87,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches made by the operators' CUDA implementations, eager or
 #: from an exported program (an export trace launches nothing): the dense
-#: form, the pad-aware form (``valid_hw`` given), the band form, and the
-#: dense form's backward.
+#: form, the pad-aware form (``valid_hw`` given), the band form, the
+#: dense form's backward and the band backward.
 LAUNCHES = 0
 VALID_LAUNCHES = 0
 BAND_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+BAND_BACKWARD_LAUNCHES = 0
 # Engines on several threads (``cli.eval --devices``) launch at once.
 _COUNT_LOCK = threading.Lock()
 
@@ -100,17 +118,17 @@ def pyramid_pool_band_plain(x: torch.Tensor, valid_hw: torch.Tensor, row0: int,
     + hb)`` of an ``h``-row map) over each bin's rows in the band, bins over
     the extents ``valid_hw`` (clamped to the map): the rows ``[row0, row0 +
     hb)`` of ``adaptive_pool_matrix``'s bins, as indicators, in two f32
-    products."""
+    products (float64 for a float64 band)."""
     n, hb, w, _ = x.shape
     vh = valid_hw[:, 0].clamp(0, h)
     vw = valid_hw[:, 1].clamp(0, w)
-    xf = x.to(torch.float32)
+    xf = x.to(acc_dtype(x.dtype))
     sums = []
     for s in SCALES:
         mh = (adaptive_pool_matrix(s, h, vh, device=x.device)[..., row0:row0 + hb] > 0)
         mw = adaptive_pool_matrix(s, w, vw, device=x.device) > 0
-        p = torch.einsum("nik,nkwc->niwc", mh.to(torch.float32), xf)
-        sums.append(torch.einsum("njw,niwc->nijc", mw.to(torch.float32), p).reshape(n, s * s, -1))
+        p = torch.einsum("nik,nkwc->niwc", mh.to(xf.dtype), xf)
+        sums.append(torch.einsum("njw,niwc->nijc", mw.to(xf.dtype), p).reshape(n, s * s, -1))
     return torch.cat(sums, dim=1).contiguous()
 
 
@@ -147,17 +165,28 @@ def pyramid_pool_backward_plain(grads: Sequence[torch.Tensor], hw: Tuple[int, in
     """The input gradient of the dense form, summed explicitly in f32 over
     the scales and each scale's bins (i, j) in order, rounded once to the
     gradients' dtype: (N, H, W, C) from the four (N, s, s, C) ``grads``."""
+    return pyramid_pool_band_backward_plain(grads, 0, hw[0], hw)
+
+
+def pyramid_pool_band_backward_plain(grads: Sequence[torch.Tensor], row0: int, hb: int,
+                                     hw: Tuple[int, int]):
+    """Rows ``[row0, row0 + hb)`` of ``pyramid_pool_backward_plain``'s
+    gradient of an ``hw`` map, (N, hb, W, C): each bin's term over its rows
+    in the band, added in the same order, so bit-equal to those rows."""
     h, w = hw
     n, _, _, c = grads[0].shape
-    acc = torch.zeros((n, h, w, c), dtype=acc_dtype(grads[0].dtype), device=grads[0].device)
+    acc = torch.zeros((n, hb, w, c), dtype=acc_dtype(grads[0].dtype), device=grads[0].device)
     for s, g in zip(SCALES, grads):
         g = g.to(acc.dtype)
         for i in range(s):
             h0, h1 = bin_bounds(i, h, s)
+            a, b = max(h0, row0), min(h1, row0 + hb)
+            if a >= b:
+                continue
             for j in range(s):
                 w0, w1 = bin_bounds(j, w, s)
                 term = g[:, i, j, :] / ((h1 - h0) * (w1 - w0))
-                acc[:, h0:h1, w0:w1, :] += term[:, None, None, :]
+                acc[:, a - row0:b - row0, w0:w1, :] += term[:, None, None, :]
     return acc.to(grads[0].dtype)
 
 
@@ -180,6 +209,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     if hasattr(lib, "ppm_pool_backward_launch"):  # an older source has none
         lib.ppm_pool_backward_launch.argtypes = [vp] * 5 + [ci] * 5 + [vp]
         lib.ppm_pool_backward_launch.restype = ci
+    if hasattr(lib, "ppm_pool_band_backward_launch"):
+        lib.ppm_pool_band_backward_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+        lib.ppm_pool_band_backward_launch.restype = ci
     if hasattr(lib, "ppm_pool_band_launch"):
         # An older source's band form also takes a scratch pointer.
         lib.band_scratch = not hasattr(lib, "ppm_pool_band_abi")
@@ -250,6 +282,24 @@ def launch_backward(lib: ctypes.CDLL, grads: Sequence[torch.Tensor],
     return out
 
 
+def launch_band_backward(lib: ctypes.CDLL, grads: Sequence[torch.Tensor], row0: int, hb: int,
+                         hw: Tuple[int, int]) -> torch.Tensor:
+    """One launch of ``lib``'s band backward on checked, contiguous CUDA
+    gradients, uncounted; returns rows ``[row0, row0 + hb)`` of the input
+    gradient, (N, hb, W, C)."""
+    g = grads[0]
+    n, _, _, c = g.shape
+    out = torch.empty((n, hb, hw[1], c), dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        err = lib.ppm_pool_band_backward_launch(
+            *(t.data_ptr() for t in grads), out.data_ptr(), n, hw[0], hw[1], c, row0, hb,
+            _DTYPE_CODES[g.dtype], torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ppm_pool band backward kernel launch failed: cudaError {err}")
+    return out
+
+
 def _check(x: torch.Tensor, valid_hw: Optional[torch.Tensor] = None) -> None:
     """What the kernel takes: raises on anything else, copies nothing."""
     if x.dim() != 4:
@@ -296,6 +346,14 @@ def _check_grads(grads: Sequence[torch.Tensor]) -> None:
             )
     if g.dtype not in _DTYPE_CODES:
         raise TypeError(f"pyramid_pool_backward takes float32 or bfloat16, got {g.dtype}")
+
+
+def _check_band_grads(grads: Sequence[torch.Tensor], row0: int, hb: int, h: int,
+                      w: int) -> None:
+    _check_grads(grads)
+    if hb < 1 or row0 < 0 or row0 + hb > h or min(h, w) < 1 or max(h, w) >= 2**31:
+        raise ValueError(f"pyramid_pool_band_backward: rows [{row0}, {row0 + hb}) are not a "
+                         f"non-empty band of a {h}x{w} map")
 
 
 def _grids_like(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -368,10 +426,34 @@ def _backward_cuda(grads, h, w):
     return out
 
 
+@torch.library.custom_op("semseg_tpu_torch::pyramid_pool_band_backward", mutates_args=(),
+                         device_types="cpu")
+def _band_backward_op(grads: List[torch.Tensor], row0: int, hb: int, h: int,
+                      w: int) -> torch.Tensor:
+    return pyramid_pool_band_backward_plain(grads, row0, hb, (h, w))
+
+
+@_band_backward_op.register_kernel("cuda")
+def _band_backward_cuda(grads, row0, hb, h, w):
+    global BAND_BACKWARD_LAUNCHES
+    _check_band_grads(grads, row0, hb, h, w)
+    out = launch_band_backward(_lib(), grads, row0, hb, (h, w))
+    with _COUNT_LOCK:
+        BAND_BACKWARD_LAUNCHES += 1
+    return out
+
+
 _dense_op.register_fake(_grids_like)
 _valid_op.register_fake(lambda x, valid_hw: _grids_like(x))
 _band_op.register_fake(
-    lambda x, valid_hw, row0, h: x.new_empty((x.shape[0], 50, x.shape[3]), dtype=torch.float32))
+    lambda x, valid_hw, row0, h: x.new_empty((x.shape[0], 50, x.shape[3]),
+                                             dtype=acc_dtype(x.dtype)))
+
+
+@_band_backward_op.register_fake
+def _(grads, row0, hb, h, w):
+    n, _, _, c = grads[0].shape
+    return grads[0].new_empty((n, hb, w, c))
 
 
 @_backward_op.register_fake
@@ -425,13 +507,66 @@ def pyramid_pool_band(x: torch.Tensor, valid_hw: torch.Tensor, row0: int,
     ``[row0, row0 + hb)`` of an ``h``-row map, of which ``x`` (N, hb, W, C)
     holds those rows; bins over each sample's extent ``valid_hw`` ((N, 2)
     int32). ``band_sums_to_grids`` turns the bands' summed sums into the
-    four grids. Inference only. On a CUDA tensor ``x`` must be float32 or
+    four grids. Inference only (training pools through
+    ``pyramid_pool_bands``). On a CUDA tensor ``x`` must be float32 or
     bfloat16 and NHWC-contiguous, and ``valid_hw`` a contiguous int32
     tensor on the same card; the kernel runs on the current stream and
     nothing is synchronised.
     """
     if x.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("pyramid_pool_band has no gradient (inference only)")
+        raise RuntimeError("pyramid_pool_band has no gradient (inference only; training "
+                           "pools its bands through pyramid_pool_bands)")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"pyramid_pool_band: unsupported device {x.device}")
     return _band_op(x, valid_hw, int(row0), int(h))
+
+
+def _full_extents(n: int, h: int, w: int, device) -> torch.Tensor:
+    """(N, 2) int32 extents (h, w) on ``device``, made there (no copy from
+    the host)."""
+    v = torch.full((n, 2), h, dtype=torch.int32, device=device)
+    v[:, 1] = w
+    return v
+
+
+class _BandedPool(torch.autograd.Function):
+    """The four grids of a map held as row bands, over the whole map (see
+    the module docstring); the gradient of each band is its rows of the
+    dense backward."""
+
+    @staticmethod
+    def forward(ctx, *parts):
+        h, w = sum(p.shape[1] for p in parts), parts[0].shape[2]
+        n, dev0 = parts[0].shape[0], parts[0].device
+        total, rows, row0 = None, [], 0
+        for p in parts:
+            v = _full_extents(n, h, w, p.device)
+            sums = _band_op(p, v, row0, h).to(dev0, non_blocking=True)
+            total = sums if total is None else total + sums
+            rows.append((row0, p.shape[1], p.device))
+            row0 += p.shape[1]
+        ctx.rows, ctx.hw = rows, (h, w)
+        return band_sums_to_grids(total, _full_extents(n, h, w, dev0), (h, w), parts[0].dtype)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g.contiguous() for g in grads]
+        return tuple(
+            _band_backward_op([g.to(device, non_blocking=True) for g in grads], row0, hb,
+                              *ctx.hw)
+            for row0, hb, device in ctx.rows)
+
+
+def pyramid_pool_bands(parts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The four (N, s, s, C) grids of an (N, H, W, C) map held as row bands
+    ``parts`` (each NHWC-contiguous, in order, on its band's device; H the
+    sum of their heights), over the whole map, on the first band's device:
+    the dense form's result up to the order of the sums. Differentiable:
+    each band's gradient is its rows of the dense backward
+    (``pyramid_pool_band_backward``, launched on the band's device). On
+    CUDA tensors each band must be float32 or bfloat16.
+    """
+    for p in parts:
+        if p.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"pyramid_pool_bands: unsupported device {p.device}")
+    return _BandedPool.apply(*parts)

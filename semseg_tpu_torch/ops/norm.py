@@ -28,9 +28,30 @@ arithmetic is the one-process arithmetic on the global sums (a group of
 one rank computes what no group does, bit for bit). Every rank then holds
 the same running statistics. The gradient is otherwise autograd's through
 these ops.
+
+``batch_norm_train_bands`` is the same call over a map held as row bands
+(``cli.train TPU.spatial``: each image's height split across devices):
+each band sums its own (s, ss) on its device, the bands' sums are added on
+the first band's device, the group's all-reduce follows once, and the
+count is the rank's whole map's. The statistics and the running update are
+then the unsplit call's arithmetic; each band is normalised on its own
+device, and the statistics' gradient reaches each band through the copies.
+``batch_norm_train`` is its one-band case.
+
+Over bands on several cards, autograd runs each card's part of the backward
+on a thread of its own, so the moment at which a statistics all-reduce's
+backward becomes ready depends on the other cards' threads, and two ranks
+could reach the group's collectives in different orders (mismatched or
+hung all-reduces). Inside ``ordered_collectives`` every differentiable
+``all_reduce_sum`` takes the previous one's output as an input (its
+gradient for it is None): the backward then runs them in the reverse of
+the forward's order, which is the same on every rank.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.distributed as dist
@@ -39,11 +60,13 @@ from .dtypes import acc_dtype
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks of ``group``; the gradient is summed the same way."""
+    """Sum over the ranks of ``group``; the gradient is summed the same way.
+    ``after``: outputs of earlier calls whose backward must come after this
+    one's (``ordered_collectives``); they get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, *after):
+        ctx.group, ctx.after = group, len(after)
         x = x.clone()
         dist.all_reduce(x, group=group)
         return x
@@ -52,13 +75,36 @@ class _AllReduceSum(torch.autograd.Function):
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return (grad, None) + (None,) * ctx.after
+
+
+_order = threading.local()
+
+
+@contextlib.contextmanager
+def ordered_collectives():
+    """Chains the differentiable ``all_reduce_sum`` calls made inside, so
+    that their backward all-reduces run in one order on every rank (module
+    docstring)."""
+    _order.last = None
+    _order.active = True
+    try:
+        yield
+    finally:
+        _order.active = False
+        _order.last = None
 
 
 def all_reduce_sum(x, group=None):
     """``x`` summed over the ranks of ``group`` (differentiable); ``x`` itself
     without a group."""
-    return x if group is None else _AllReduceSum.apply(x, group)
+    if group is None:
+        return x
+    if not (getattr(_order, "active", False) and x.requires_grad and torch.is_grad_enabled()):
+        return _AllReduceSum.apply(x, group)
+    after = () if _order.last is None else (_order.last,)
+    _order.last = _AllReduceSum.apply(x, group, *after)
+    return _order.last
 
 
 def group_size(group=None) -> int:
@@ -83,20 +129,42 @@ def batch_norm_train(x, weight, bias, running_mean, running_var, running_iter, *
     Returns ``(y, new_running_mean, new_running_var, new_running_iter)``;
     the new statistics carry no gradient.
     """
-    local_n = x.shape[0] * x.shape[2] * x.shape[3]
+    (y,), *stats = batch_norm_train_bands([x], weight, bias, running_mean, running_var,
+                                          running_iter, eps=eps, momentum=momentum,
+                                          group=group)
+    return (y, *stats)
+
+
+def batch_norm_train_bands(parts, weight, bias, running_mean, running_var, running_iter, *,
+                           eps=1e-5, momentum=0.001, group=None):
+    """``batch_norm_train`` over an NCHW map held as row bands ``parts`` (in
+    order, each on its band's device; the parameters and statistics on the
+    first band's), over the whole map and ``group``'s ranks.
+
+    Returns ``(ys, new_running_mean, new_running_var, new_running_iter)``,
+    ``ys`` the normalised bands, each on its band's device.
+    """
+    n_, c_, _, w_ = parts[0].shape
+    shape = (n_, c_, sum(p.shape[2] for p in parts), w_)
+    local_n = shape[0] * shape[2] * shape[3]
     global_n = local_n * group_size(group)
     if global_n <= 1:
         raise ValueError(
             f"batch_norm_train needs >1 element per channel, got {global_n} (input "
-            f"{tuple(x.shape)}); a global batch of 1 reaching a 1x1 feature map cannot "
+            f"{shape}); a global batch of 1 reaching a 1x1 feature map cannot "
             "estimate batch statistics (the reference asserts the same)"
         )
-    adt = acc_dtype(x.dtype)
-    xf = x.to(adt)
-    s = xf.sum(dim=(0, 2, 3))
-    ss = (xf * xf).sum(dim=(0, 2, 3))
+    adt = acc_dtype(parts[0].dtype)
+    dev0 = parts[0].device
+    xfs, sums = [], None
+    for x in parts:
+        xf = x.to(adt)
+        xfs.append(xf)
+        band = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))])
+        band = band.to(dev0, non_blocking=True)
+        sums = band if sums is None else sums + band
     n = global_n
-    s, ss = all_reduce_sum(torch.cat([s, ss]), group).chunk(2)
+    s, ss = all_reduce_sum(sums, group).chunk(2)
     mean = s / n
     sumvar = ss - s * mean
     bias_var = sumvar / n
@@ -109,6 +177,10 @@ def batch_norm_train(x, weight, bias, running_mean, running_var, running_iter, *
         new_mean = (running_mean * running_iter * keep + mean) / new_iter
         new_var = (running_var * running_iter * keep + unbias_var) / new_iter
 
-    y = (xf - mean.view(1, -1, 1, 1)) * (inv_std * weight).view(1, -1, 1, 1) \
-        + bias.view(1, -1, 1, 1)
-    return y.to(x.dtype), new_mean, new_var, new_iter
+    scale = inv_std * weight
+    ys = []
+    for x, xf in zip(parts, xfs):
+        m, a, b = (t.to(x.device, non_blocking=True).view(1, -1, 1, 1)
+                   for t in (mean, scale, bias))
+        ys.append(((xf - m) * a + b).to(x.dtype))
+    return ys, new_mean, new_var, new_iter

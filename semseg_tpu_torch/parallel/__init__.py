@@ -1,8 +1,9 @@
 """Training (``semseg_tpu/parallel``): the train state and step, the device
 prefetcher, and the ranks of a data-parallel run (``distributed``: the
-handshake, per-rank seeds and batch slices, the cross-rank canvas). One
-process per card; the step over the ranks is the JAX package's over the
-global batch."""
+handshake, per-rank seeds and batch slices, the cross-rank canvas) and
+each image's height split over a rank's devices (``spatial``). One process
+per card, or per data group of cards under ``TPU.spatial``; the step over
+the ranks is the JAX package's over the global batch."""
 
 from .distributed import process_seed
 from .mesh import device_prefetch

@@ -17,6 +17,10 @@ CPU. Each rank feeds its own slice of the global batch:
 * ``process_seed`` de-correlates the ranks' ``TrainDataset`` streams;
   ``global_batch_size`` and ``local_batch_slice`` place a rank's slice in
   the global batch: rank r holds rows [r*N, (r+1)*N).
+* ``group_devices`` names a rank's devices under ``TPU.spatial`` (the JAX
+  trainer's hybrid data x spatial mesh, ``make_mesh_2d``): each rank is one
+  data group and drives its group's cards, one band of each image's
+  height on each (``parallel/spatial.py``).
 * ``_sync_batch_canvas`` pads each rank's batch to the cross-rank maximum
   (H, W). Shapes alone would not need it, but the padded region enters the
   batch-norm statistics in JAX, whose global batch has one canvas; without
@@ -35,7 +39,7 @@ import os
 import socket
 import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -57,6 +61,21 @@ def visible_cards(requested: int) -> int:
     if count == 0:
         raise RuntimeError("no CUDA card is visible; pass --device cpu to run on the CPU")
     return min(requested, count)
+
+
+def group_devices(device, rank: int, spatial: int) -> List[torch.device]:
+    """The devices of data group ``rank``'s ``spatial`` bands: with a bare
+    ``cuda`` cards ``[rank * spatial, (rank + 1) * spatial)`` of this host
+    (JAX's ``make_mesh_2d`` rows); with ``cuda:K`` or ``cpu`` that one
+    device for every band, as ``cli.eval --spatial`` places its bands."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        first = rank * spatial
+        if visible_cards(first + spatial) < first + spatial:
+            raise ValueError(f"data group {rank} of {spatial} bands needs cards {first}-"
+                             f"{first + spatial - 1}; {torch.cuda.device_count()} visible")
+        return [torch.device("cuda", first + j) for j in range(spatial)]
+    return [d] * spatial
 
 
 def _rank_device(device, local_rank: int) -> torch.device:

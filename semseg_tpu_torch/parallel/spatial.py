@@ -1,5 +1,6 @@
-"""Each image's height split across devices: the eval half of the JAX
-package's spatial sharding (``cli.eval --spatial N``).
+"""Each image's height split across devices: the JAX package's spatial
+sharding, in eval (``cli.eval --spatial N``) and in training (``cli.train
+TPU.spatial N``).
 
 JAX puts each bucketed level on a mesh with its height sharded
 (``semseg_tpu/parallel/mesh.py::spatial_sharding``) and lets GSPMD insert
@@ -21,15 +22,25 @@ controller does, and the exchanges are written out:
   band holds are copied from it, from as many bands as the rows span (a
   dilation-4 conv over bands of one row reads four of them).
 * ``band_conv``, ``band_max_pool``, ``band_apply`` (a module that acts on
-  each pixel alone, in eval) and ``run_banded`` (a ``Sequential`` of those)
-  are the model's ops on a ``Bands``; the banded encoders and decoders are
-  in ``models/`` beside the modules whose parameters they use.
+  each pixel alone in eval: batch norm, dropout, an activation; in
+  training through its ``forward_bands``, whose batch norm takes the
+  whole map's statistics and whose dropout draws one mask for every band)
+  and ``run_banded`` (a ``Sequential`` of those) are the model's ops on a
+  ``Bands``; the banded encoders and decoders are in ``models/`` beside
+  the modules whose parameters they use. ``split_labels`` cuts a training
+  batch's stride-8 labels into the plan's rows.
+
+An op takes its modules as a list: in eval one copy per band (``mods[j]``
+on band j's device), in training the one model's module, on the first
+band's device, for every band (``[module]``). A conv then reads its
+parameters through ``Tensor.to(band device, dtype)``, and autograd sums
+the bands' gradients onto the one parameter; a halo row's gradient goes
+back to the band that sent it through the same copies and ``torch.cat``.
 
 Bands that share a device read each other's rows as slices; across cards a
 halo moves with ``Tensor.to(device, non_blocking=True)``, which PyTorch
 orders against both cards' current streams. Nothing here synchronises with
-the host, so the cards run their bands at once. Inference only: a module in
-training mode raises.
+the host, so the cards run their bands at once.
 """
 
 from __future__ import annotations
@@ -119,6 +130,16 @@ def split_rows(x: torch.Tensor, plan: BandPlan, devices: Sequence, stride: int =
                   for (r0, r1), d in zip(plan.rows(stride), devices)], plan, stride)
 
 
+def split_labels(label: torch.Tensor, plan: BandPlan, devices: Sequence) -> List[torch.Tensor]:
+    """A training batch's (N, h, w) labels at stride 8 cut into ``plan``'s
+    stride-8 rows, band j's sent to ``devices[j]``."""
+    if label.shape[1] != plan.height(BASE_STRIDE):
+        raise ValueError(f"labels of {label.shape[1]} rows for a {plan.canvas_height}-row "
+                         f"canvas at stride {BASE_STRIDE} ({plan.height(BASE_STRIDE)} rows)")
+    return [label[:, r0:r1].to(d, non_blocking=True)
+            for (r0, r1), d in zip(plan.rows(BASE_STRIDE), devices)]
+
+
 def gather(x: Bands, device) -> torch.Tensor:
     """The whole map on ``device``, its bands stacked in order."""
     parts = [p.to(device, non_blocking=True) for p in x.parts]
@@ -152,10 +173,22 @@ def _window(o0: int, o1: int, k: int, s: int, p: int, d: int) -> Tuple[int, int]
     return o0 * s - p, (o1 - 1) * s - p + d * (k - 1) + 1
 
 
+def _on(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Parameter ``t`` in ``like``'s dtype on ``like``'s device (cast, then
+    copied: fewer bytes cross between cards in bf16)."""
+    return t.to(like.dtype).to(like.device, non_blocking=True)
+
+
+def _per_band(mods: Sequence[nn.Module], x: Bands) -> Sequence[nn.Module]:
+    """Band j's module: ``mods[j]``, or the one module of ``[module]``."""
+    return list(mods) * len(x.parts) if len(mods) == 1 else mods
+
+
 def band_conv(convs: Sequence[nn.Conv2d], x: Bands) -> Bands:
-    """``convs[j]`` (one conv's copy on band j's device, a ``layers.Conv2d``:
-    its f32 parameters cast to the input's dtype) over each band with its
-    halo; zero padding rows, the conv's own padding across the width."""
+    """Band j's conv (``convs[j]`` or the one of ``[conv]``, a
+    ``layers.Conv2d``: its f32 parameters cast to the input's dtype and read
+    on band j's device) over each band with its halo; zero padding rows,
+    the conv's own padding across the width."""
     conv = convs[0]
     if conv.padding_mode != "zeros" or isinstance(conv.padding, str):
         raise NotImplementedError(f"band_conv: padding {conv.padding!r} {conv.padding_mode}")
@@ -163,10 +196,10 @@ def band_conv(convs: Sequence[nn.Conv2d], x: Bands) -> Bands:
         conv.dilation
     out_stride = x.stride * sh
     parts = []
-    for c, (o0, o1), part in zip(convs, x.plan.rows(out_stride), x.parts):
+    for c, (o0, o1), part in zip(_per_band(convs, x), x.plan.rows(out_stride), x.parts):
         inp = halo_rows(x, *_window(o0, o1, kh, sh, ph, dh), part.device)
-        bias = None if c.bias is None else c.bias.to(inp.dtype)
-        parts.append(F.conv2d(inp, c.weight.to(inp.dtype), bias, c.stride, (0, pw),
+        bias = None if c.bias is None else _on(c.bias, inp)
+        parts.append(F.conv2d(inp, _on(c.weight, inp), bias, c.stride, (0, pw),
                               c.dilation, c.groups))
     return Bands(parts, x.plan, out_stride)
 
@@ -184,17 +217,23 @@ def band_max_pool(x: Bands, kernel_size: int, stride: int, padding: int) -> Band
 
 
 def band_apply(mods: Sequence[nn.Module], x: Bands) -> Bands:
-    """``mods[j]`` (one module's copy on band j's device) applied to band j:
-    for a module whose output pixel depends on its input pixel alone (batch
-    norm and dropout in eval, an activation)."""
-    for m in mods:
-        if m.training:
-            raise RuntimeError(f"a banded {type(m).__name__} runs in eval mode only")
-    return Bands([m(p) for m, p in zip(mods, x.parts)], x.plan, x.stride)
+    """A ``ROWWISE`` module (``models/layers.py``: batch norm, dropout, an
+    activation) over a banded map: the one module of ``[module]`` over
+    every band through its ``forward_bands`` (in training, over the whole
+    map), or each band's copy (``mods[j]``, on band j's device) on its
+    band, in eval."""
+    if len(mods) == 1:
+        return Bands(mods[0].forward_bands(x.parts), x.plan, x.stride)
+    for o in mods:
+        if o.training:
+            raise RuntimeError(f"banded {type(o).__name__} copies run in eval mode only; a "
+                               "training forward passes its one module for every band")
+    return Bands([o(p) for o, p in zip(mods, x.parts)], x.plan, x.stride)
 
 
 def run_banded(mods: Sequence[nn.Module], x: Bands) -> Bands:
-    """One module (``mods[j]``: its copy for band j) over a banded map: a
+    """One module (``mods[j]``: its copy for band j; or ``[module]`` for
+    every band) over a banded map: a
     ``Sequential`` in order, a conv with its halo, a row-wise module
     (``ROWWISE``, ``models/layers.py``) per band; anything else raises."""
     m = mods[0]

@@ -32,6 +32,23 @@ loss's gradient, so each rank's loss is scaled by the number of ranks
 before its backward. The batch-norm buffers are equal on every rank by
 construction, so DDP does not broadcast them.
 
+The hybrid data x spatial step (``create_train_state(...,
+spatial_devices=[...])``, ``cli.train TPU.spatial``): each image's height
+is split in row bands over the rank's devices, as the JAX package's
+``make_mesh_2d`` + ``shard_batch`` split it over its ``spatial`` axis.
+``train_step`` normalises the batch on the rank's first device as always;
+the model's ``spatial`` forward (``models.segmentation``) then cuts images
+and labels with ``BandPlan`` over the rank's canvas and runs the banded
+forward, whose backward sums each parameter's gradient over the bands onto
+the one model on the first device. Across the data groups the gradients
+are summed by one all-reduce after the last microbatch's backward, not by
+DDP: with bands on several cards autograd runs each card's part of the
+backward on a thread of its own, so DDP's bucket all-reduces and BN's
+statistics all-reduces (which ``models.segmentation`` chains into one
+order, ``ops.norm.ordered_collectives``) could reach the group in another
+order on each rank. The ranks start from rank 0's parameters and
+buffers, as DDP's construction makes them.
+
 Dropout draws from a CPU generator seeded from ``TRAIN.seed`` and the step
 (``dropout_generator``), so a run repeats, and the card draws what the CPU
 draws. The step's forward, backward and update run inside the profiler
@@ -53,7 +70,7 @@ from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
 
 from semseg_tpu_torch.models.layers import Dropout2d
-from semseg_tpu_torch.models.segmentation import set_process_group
+from semseg_tpu_torch.models.segmentation import check_banded, set_process_group
 from semseg_tpu_torch.ops.preproc import normalize_u8_masked
 
 
@@ -67,6 +84,8 @@ class TrainState:
     dropouts: List[Dropout2d] = field(default_factory=list)
     ddp: Optional[DistributedDataParallel] = None  # the model's data-parallel wrapper
     world: int = 1  # ranks of the data-parallel group
+    spatial: Optional[List[torch.device]] = None  # the bands' devices (TPU.spatial > 1)
+    group: Optional[dist.ProcessGroup] = None  # the ranks whose gradients a split step sums
 
 
 def decay_mask(module: torch.nn.Module) -> Dict[str, bool]:
@@ -103,21 +122,33 @@ def make_optimizer(cfg, model) -> torch.optim.SGD:
     return torch.optim.SGD(groups, lr=cfg.TRAIN.lr_encoder, momentum=cfg.TRAIN.beta1)
 
 
-def create_train_state(cfg, model, group=None) -> TrainState:
+def create_train_state(cfg, model, group=None, spatial_devices=None) -> TrainState:
     """The train state of ``model``; with ``group`` (a process group, each
-    rank on its own device) that of one data-parallel rank over it."""
+    rank on its own device) that of one data-parallel rank over it; with
+    ``spatial_devices`` (more than one; the first is the model's) each
+    image's height is split over them (module docstring)."""
+    spatial = None
+    if spatial_devices is not None and len(spatial_devices) > 1:
+        spatial = [torch.device(d) for d in spatial_devices]
+        check_banded(model)
     ddp, world = None, 1
     if group is not None:
         set_process_group(model, group)
+        world = dist.get_world_size(group)
+    if group is not None and spatial is None:
         with warnings.catch_warnings():
             # Newer PyTorch renames the switch; older has only this name.
             warnings.filterwarnings("ignore", message="`broadcast_buffers` is deprecated")
             ddp = DistributedDataParallel(model, process_group=group, broadcast_buffers=False)
-        world = dist.get_world_size(group)
+    elif group is not None:
+        with torch.no_grad():
+            for t in [*model.parameters(), *model.buffers()]:
+                dist.broadcast(t, dist.get_global_rank(group, 0), group=group)
     return TrainState(
         model=model, optimizer=make_optimizer(cfg, model),
         max_iters=cfg.TRAIN.num_epoch * cfg.TRAIN.epoch_iters, lr_pow=cfg.TRAIN.lr_pow,
         dropouts=[m for m in model.modules() if isinstance(m, Dropout2d)], ddp=ddp, world=world,
+        spatial=spatial, group=group if spatial is not None else None,
     )
 
 
@@ -143,8 +174,9 @@ def train_step(state: TrainState, batch: dict, generator: Optional[torch.Generat
     ``img_data`` (N, H, W, 3) float32, or uint8 with ``img_valid_hw`` (N, 2)
     int32, and ``seg_label`` (N, h, w) int32; with ``grad_accum`` > 1 each
     with a leading microbatch axis; a data-parallel rank's slice of the
-    global batch). Updates ``state`` in place and returns ``{'loss', 'acc'}``
-    (the global batch's) as device scalars (not fetched)."""
+    global batch; with ``state.spatial`` its images' rows are split over
+    those devices). Updates ``state`` in place and returns ``{'loss',
+    'acc'}`` (the global batch's) as device scalars (not fetched)."""
     opt = state.optimizer
     model = state.ddp if state.ddp is not None else state.model
     for m in state.dropouts:
@@ -160,26 +192,41 @@ def train_step(state: TrainState, batch: dict, generator: Optional[torch.Generat
             raise ValueError(f"grad_accum={grad_accum} expects a leading microbatch axis "
                              f"(stack_microbatches); got leading dim {lead}")
         micro = [{k: v[i] for k, v in batch.items()} for i in range(grad_accum)]
+    split = {} if state.spatial is None else {"spatial": state.spatial}
     loss_sum = acc_sum = 0.0
     for i, mb in enumerate(micro):
         no_sync = state.ddp is not None and i + 1 < len(micro)
         with state.ddp.no_sync() if no_sync else contextlib.nullcontext():
             with record_function("semseg::forward"):
-                loss, acc = model(_images(mb), seg_label=mb["seg_label"])
+                loss, acc = model(_images(mb), seg_label=mb["seg_label"], **split)
             with record_function("semseg::backward"):
                 (loss * state.world).backward()
         loss_sum = loss_sum + loss.detach()
         acc_sum = acc_sum + acc.detach()
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:  # unused this step: a zero gradient, as in JAX
+            p.grad = torch.zeros_like(p)
+    if state.group is not None:
+        with record_function("semseg::backward"):
+            _average_over_ranks([p.grad for p in params], state.group, state.world)
     with record_function("semseg::optimizer"):
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:  # unused this step: a zero gradient, as in JAX
-                    p.grad = torch.zeros_like(p)
-                elif grad_accum > 1:
-                    p.grad.div_(grad_accum)
+        if grad_accum > 1:
+            for p in params:
+                p.grad.div_(grad_accum)
         opt.step()
     state.step += 1
     return {"loss": loss_sum / grad_accum, "acc": acc_sum / grad_accum}
+
+
+def _average_over_ranks(grads, group, world: int) -> None:
+    """The gradients averaged over ``group``'s ranks in place, in one
+    all-reduce of them flattened (what DDP computes, in one fixed order)."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat.div_(world)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 def stack_microbatches(batch: dict, grad_accum: int) -> dict:

@@ -7,11 +7,15 @@
   and the port 8 cards (``torch.cuda.device_count`` patched), and each case
   must give both the same count; with ``--device cpu`` and no number the
   port trains in one process.
-* ``TPU.spatial`` > 1 is read where the JAX package reads it: ``cli.train``
-  raises a clear ``NotImplementedError`` (the training half of the height
-  split is not ported, ROADMAP item 17b); ``cli.eval`` and ``ModelBuilder``
-  ignore it, as JAX's do; ``cli.eval --spatial 2 --device cpu`` runs one
-  engine over two CPU bands.
+* ``TPU.spatial`` > 1 is read where the JAX package reads it: ``cli.train
+  --device cpu ... TPU.spatial 2`` trains with each image's height split in
+  two CPU bands and writes its checkpoint; ``cli.eval`` and
+  ``ModelBuilder`` ignore it, as JAX's do; ``cli.eval --spatial 2 --device
+  cpu`` runs one engine over two CPU bands. ``cli.train``'s (data groups,
+  spatial) selection is JAX's ``build_train_mesh(c, devices).shape`` for
+  the cases of ``tests/test_cli.py:128-155`` ("must divide" included), on
+  conftest's 8 CPU devices against 8 cards; ``--multihost`` and
+  ``TPU.remat`` with ``TPU.spatial`` raise.
 * ``cli.eval --profile DIR`` writes a Chrome trace of the eval loop, when
   the loop ends and when it raises.
 """
@@ -20,6 +24,7 @@ import json
 import os
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -30,6 +35,7 @@ from semseg_tpu_torch.cli import eval as eval_cli
 from semseg_tpu_torch.cli import train as train_cli
 from semseg_tpu_torch.config import cfg
 from semseg_tpu_torch.models import ModelBuilder
+from semseg_tpu_torch.parallel import distributed
 from test_torch_dist_cli import CFG18
 from test_torch_train_cli import train_set  # noqa: F401  (the fixture)
 
@@ -71,12 +77,20 @@ def test_gpus_list_sizes_the_ranks(monkeypatch):
 
 @pytest.mark.parametrize("where", ["train", "eval", "eval --spatial", "builder"])
 def test_spatial_raises(where, tmp_path, train_set, monkeypatch):  # noqa: F811
-    """Only ``cli.train`` raises on ``TPU.spatial`` 2 (JAX's trainer is the
-    one reader); the rest behave as the JAX package's."""
+    """``cli.train`` trains split on ``TPU.spatial`` 2 (JAX's trainer is the
+    one reader); the rest ignore it, as the JAX package's do."""
+    root, odgt = train_set
     if where == "train":
-        with pytest.raises(NotImplementedError, match="ROADMAP item 17b"):
-            train_cli.main(["--cfg", CFG18, "--device", "cpu", "DIR", str(tmp_path),
-                            "TPU.spatial", "2"])
+        state, history = train_cli.main([
+            "--cfg", CFG18, "--device", "cpu", "DIR", str(tmp_path), "TPU.spatial", "2",
+            "DATASET.root_dataset", root, "DATASET.list_train", odgt,
+            "DATASET.imgSizes", "(40,)", "DATASET.imgMaxSize", "64", "TRAIN.num_epoch", "1",
+            "TRAIN.epoch_iters", "2", "TRAIN.disp_iter", "1", "TRAIN.workers", "1",
+            "MODEL.pretrained_encoder", "False"])
+        assert state.step == 2 and state.spatial == [torch.device("cpu")] * 2
+        assert all(np.isfinite(history["train"]["loss"]))
+        for f in ("encoder_epoch_1.pth", "decoder_epoch_1.pth", "state_epoch_1.pt"):
+            assert (tmp_path / f).exists(), f
         return
     c = cfg.clone()
     c.merge_from_file(CFG18)
@@ -89,7 +103,6 @@ def test_spatial_raises(where, tmp_path, train_set, monkeypatch):  # noqa: F811
     ckpt.mkdir()
     for part in ("encoder", "decoder"):
         torch.save(getattr(model, part).state_dict(), ckpt / f"{part}_epoch_20.pth")
-    root, odgt = train_set
     built = []
     real = eval_cli.build_engines
     monkeypatch.setattr(eval_cli, "build_engines",
@@ -103,6 +116,45 @@ def test_spatial_raises(where, tmp_path, train_set, monkeypatch):  # noqa: F811
     assert raw["pix_count"] > 0 and 0.0 <= miou <= 1.0
     want = [torch.device("cpu")] * 2 if where == "eval --spatial" else None
     assert engine.spatial_devices == want
+
+
+# (TPU.data_parallel, --devices, TPU.spatial): tests/test_cli.py:128-155's
+# cases, "must divide" (spatial 3 of 8 devices) last.
+MESH_CASES = [(4, 0, 1), (4, 0, 2), (0, 2, 2), (0, 0, 2), (0, 0, 3)]
+
+
+@pytest.mark.parametrize("data_parallel,devices,spatial", MESH_CASES)
+def test_train_mesh_follows_jax_build_train_mesh(data_parallel, devices, spatial,
+                                                 monkeypatch):
+    jc = jax_cfg.clone()
+    jc.merge_from_file(CFG18)
+    jc.TPU.data_parallel, jc.TPU.spatial = data_parallel, spatial
+    visible = len(jax.devices())
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    if spatial == 3:
+        with pytest.raises(ValueError, match="must divide"):
+            build_train_mesh(jc, devices)
+        with pytest.raises(ValueError, match="must divide"):
+            train_cli.train_mesh("cuda", devices, data_parallel, spatial)
+        return
+    want = dict(build_train_mesh(jc, devices).shape)
+    got = train_cli.train_mesh("cuda", devices, data_parallel, spatial)
+    assert got == (want["data"], want.get("spatial", 1))
+    # main() starts one rank per data group, each driving its cards.
+    argv = ["--devices", str(devices), "TPU.data_parallel", str(data_parallel),
+            "TPU.spatial", str(spatial)]
+    assert _ranks(monkeypatch, argv, visible) == want["data"]
+    if spatial > 1:
+        assert distributed.group_devices("cuda", 1, spatial) == [
+            torch.device("cuda", spatial + j) for j in range(spatial)]
+
+
+def test_spatial_refuses_multihost_and_remat():
+    with pytest.raises(NotImplementedError, match="single-host"):
+        train_cli.main(["--cfg", CFG18, "--multihost", "TPU.spatial", "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17e"):
+        train_cli.main(["--cfg", CFG18, "--device", "cpu", "TPU.spatial", "2",
+                        "TPU.remat", "True"])
 
 
 def test_eval_profile_writes_a_trace_on_either_exit(train_set, tmp_path, monkeypatch):  # noqa: F811
