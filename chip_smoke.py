@@ -157,6 +157,27 @@ PyTorch built for CUDA. In order:
    bands on cuda:0; (d) ``cli.train --device cuda:0 ... TPU.spatial 2``,
    one epoch of phase 8's data, writes its checkpoint pair.
 
+14. the spatial zoo (after phase 13): UPerNet on the non-dilated ResNet-50
+   and HRNetV2, whose band plans cut the canvas at stride 32, with the zoo
+   phase's seeded weights. (a) the band form and the band backward on
+   UPerNet's stride-32 conv5 maps: (1, 19, 25, 2048) in 2 and 4 bands
+   (full and partial extents), the training maps (2 and 8, 14, 19, 2048)
+   in 2 and 4 bands and in bands of 1-3 rows, each against its plain
+   version, bit-equal on repeat, each backward band bit-equal to the dense
+   backward's rows, the first band timed L2-cold beside its bound; (b) each
+   config split in 2 and 4 bands on cuda:0 against its unsplit engine over
+   two of phase 6's images: float32 (TF32 off) within 2e-4 (HRNetV2) or
+   1e-3 (UPerNet, whose random logits reach ~1e3) with the logits' largest
+   relative difference printed, bf16 argmax agreement >= 0.99, a band
+   launch per band and level of UPerNet's PPM, single-image latency
+   unsplit and split; (c) one float32 step at batch 8, 448x608 (TF32 off,
+   deterministic algorithms) split in 2 and 4 bands against the unsplit
+   step: loss, accuracy, the stem's, a deep and the last conv's gradients,
+   BN statistics, ``iter``; (d) bf16 ms/step and peak memory at batch 2,
+   unsplit and in 2 and 4 bands, and ``cli.eval --spatial 2`` over one
+   image and ``cli.train ... TPU.spatial 2`` for one epoch of phase 8's
+   data, for each config.
+
 With more than one visible card, a last check puts a rank or an engine on
 every card: the ranks (NCCL) against one process as in 10 (a),
 ``cli.train --devices N`` for one epoch, ``cli.eval --exact --devices
@@ -165,7 +186,8 @@ the bundle exported on card 0) as in 11 (c), the spatial engine over
 the cards against one card (float32 within 2e-4) with its single-image
 latency at 1, 2 and 4 cards, the split training step with its bands on
 distinct cards against one card (as 13 (b)) with ms/step at 1, 2 and 4
-cards, and ``cli.train TPU.spatial 2`` over the cards (N / 2 data groups).
+cards, ``cli.train TPU.spatial 2`` over the cards (N / 2 data groups),
+and UPerNet's engine split over the cards against one card (as 14 (b)).
 Run with no arguments on one card, it needs one.
 
 It ends with a JSON line of per-kernel results, the card's ``nvidia-smi``
@@ -465,13 +487,14 @@ def _matching(events, names, what):
 
 def _profiled(fn, torch, flush, calls=10, names=()):
     """key_averages() of ``calls`` cold calls of ``fn`` under torch.profiler,
-    profiled again (up to three times) while it records no device activity
+    profiled again (up to five times) while it records no device activity
     or, with ``names``, fewer than ``calls`` kernels of those names (CUPTI
-    sometimes drops a profile's kernels, or one kernel's record)."""
+    sometimes drops a profile's kernels, or one kernel's record: three
+    profiles in a row kept 9 of 10 band launches on an H100)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 flush.sum()
@@ -2226,7 +2249,7 @@ def data_parallel_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_
 
 
 def multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_root,
-                     train_odgt):
+                     train_odgt, zoo_ckpts):
     """With more than one visible card: a rank per card over NCCL. The ranks
     against one process (as phase 10 (a)); ``cli.train --devices N`` for one
     epoch on phase 8's data (rank 0 writes the checkpoint); ``cli.eval
@@ -2274,6 +2297,7 @@ def multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_roo
     serve_devices_phase(work, ckpt, torch, ppm_pool, card, devices=n)
     spatial_multi_card(ckpt, val_dir, odgt, torch, card, n)
     spatial_train_multi_card(work, torch, ppm_pool, card, train_root, train_odgt, n)
+    zoo_spatial_multi_card(zoo_ckpts, val_dir, odgt, torch, card, n)
     print(f"[multi] the multi-card phase took {time.perf_counter() - start:.1f} s (card: "
           f"{card})", flush=True)
 
@@ -2714,35 +2738,36 @@ def band_bound_ms(shape, element_size):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def time_band_kernel(ppm_pool, torch, card, compare=None) -> dict:
-    """(a), timed: the flagship's conv5 (1, 75, 100, 2048) cut as a 600-row
-    canvas's stride-8 rows into 2 and 4 bands (``BandPlan``): the first
-    band's launch warm and L2-cold, its plain version, all bands in turn on
-    one card, and the pad-aware form on the whole map, cold; one kernel
-    launch per call under the profiler. With ``compare``, the other build
-    in turns. Returns {(bands, dtype): (warm, cold, plain, bound,
-    bound_by)}."""
+def time_band_kernel(ppm_pool, torch, card, compare=None, shape=MAIN_SHAPE, base=8) -> dict:
+    """(a), timed: a conv5 map of ``shape`` (by default the flagship's, (1,
+    75, 100, 2048)) cut as its canvas's stride-``base`` rows into 2 and 4
+    bands (``BandPlan``): the first band's launch warm and L2-cold, its
+    plain version, all bands in turn on one card, and the pad-aware form
+    on the whole map, cold; one kernel launch per call under the profiler.
+    With ``compare``, the other build in turns. Returns {(bands, dtype):
+    (warm, cold, plain, bound, bound_by)}."""
     from semseg_tpu_torch.parallel.spatial import BandPlan
 
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-    v = torch.tensor([[75, 100]], dtype=torch.int32, device="cuda")
+    h = shape[1]
+    v = torch.tensor([list(shape[1:3])] * shape[0], dtype=torch.int32, device="cuda")
     out = {}
     for bands in SPATIAL_BANDS:
-        rows = BandPlan(600, bands).rows(8)
+        rows = BandPlan(base * h, bands, base).rows(base)
         for dt in ("bfloat16", "float32"):
-            x = torch.randn(MAIN_SHAPE, device="cuda").to(getattr(torch, dt))
+            x = torch.randn(shape, device="cuda").to(getattr(torch, dt))
             parts = [(x[:, a:b], a) for a, b in rows]
             band, r0 = parts[0]
 
             def one():
-                return ppm_pool.pyramid_pool_band(band, v, r0, 75)
+                return ppm_pool.pyramid_pool_band(band, v, r0, h)
 
             def all_bands():
-                return [ppm_pool.pyramid_pool_band(p, v, a, 75) for p, a in parts]
+                return [ppm_pool.pyramid_pool_band(p, v, a, h) for p, a in parts]
 
             warm = _median_ms(one, torch)
             cold = _median_ms(one, torch, flush)
-            plain = _median_ms(lambda: ppm_pool.pyramid_pool_band_plain(band, v, r0, 75), torch)
+            plain = _median_ms(lambda: ppm_pool.pyramid_pool_band_plain(band, v, r0, h), torch)
             every = _median_ms(all_bands, torch, flush)
             whole = _median_ms(lambda: ppm_pool.pyramid_pool(x, valid_hw=v), torch, flush)
             bound, bound_by = band_bound_ms(tuple(band.shape), x.element_size())
@@ -2754,7 +2779,7 @@ def time_band_kernel(ppm_pool, torch, card, compare=None) -> dict:
                                    "for 10 calls, not one band kernel each")
             out[(bands, dt)] = (warm, cold, plain, bound, bound_by)
             print(f"[time] pyramid_pool_band {tuple(band.shape)} (rows {rows[0]} of "
-                  f"{MAIN_SHAPE}, {bands} bands) {dt}: {warm:.4f} ms warm, {cold:.4f} ms cold; "
+                  f"{shape}, {bands} bands) {dt}: {warm:.4f} ms warm, {cold:.4f} ms cold; "
                   f"bound {bound:.4f} ms ({bound_by}), share of bound {bound / cold:.3f} cold; "
                   f"plain {plain:.4f} ms; all {bands} bands in turn on one card {every:.4f} ms "
                   f"cold; the pad-aware form on the whole map {whole:.4f} ms cold (median of "
@@ -2763,7 +2788,7 @@ def time_band_kernel(ppm_pool, torch, card, compare=None) -> dict:
                       if mine else "not measured (no device activity recorded)") +
                   f" (card: {card})", flush=True)
             if compare is not None:
-                _turns(lambda lb: lambda: ppm_pool.launch_band(lb, band, v, r0, 75),
+                _turns(lambda lb: lambda: ppm_pool.launch_band(lb, band, v, r0, h),
                        {"this": ppm_pool._lib(), "other": compare}, torch, flush, card,
                        f"pyramid_pool_band {tuple(band.shape)} {dt}")
     return out
@@ -2953,28 +2978,32 @@ SPLIT_GRAD_LIMITS = {
 SPLIT_TIMED_STEPS = 5
 
 
-def _cuts(shape, bands):
-    """Row cuts of a map: explicit, or those of ``bands`` BandPlan bands of
-    its 8x canvas at stride 8."""
+def _cuts(shape, bands, base=8):
+    """Row cuts of a map at stride ``base``: explicit, or those of
+    ``bands`` BandPlan bands of its canvas (``base`` times its height) cut
+    at stride ``base``."""
     from semseg_tpu_torch.parallel.spatial import BandPlan
 
     if isinstance(bands, tuple):
         return bands
-    rows = BandPlan(8 * shape[1], bands).rows(8)
+    rows = BandPlan(base * shape[1], bands, base).rows(base)
     return (0,) + tuple(b for _, b in rows)
 
 
-def check_band_backward_kernel(ppm_pool, torch) -> float:
-    """(a): every band of each case against the plain version and bit-equal
-    to the dense backward kernel's rows, each launch repeated bit for bit.
-    Returns the largest absolute difference from the plain version."""
+def check_band_backward_kernel(ppm_pool, torch, checks=BAND_BACKWARD_CHECKS,
+                               tag="[spatial-train]", base=8) -> float:
+    """(a): every band of each case of ``checks`` (its cuts at stride
+    ``base``) against the plain version and bit-equal to the dense backward
+    kernel's rows, each launch repeated bit for bit; the second case also
+    on unaligned gradients. Returns the largest absolute difference from
+    the plain version."""
     max_err = 0.0
     g = torch.Generator(device="cuda").manual_seed(13)
     lib = ppm_pool._lib()
-    cases = [(*c, False) for c in BAND_BACKWARD_CHECKS] + [(*BAND_BACKWARD_CHECKS[1], True)]
+    cases = [(*c, False) for c in checks] + [(*checks[1], True)]
     for shape, bands, unaligned in cases:
         n, h, w, c = shape
-        cuts = _cuts(shape, bands)
+        cuts = _cuts(shape, bands, base)
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
             grads = []
@@ -3002,7 +3031,7 @@ def check_band_backward_kernel(ppm_pool, torch) -> float:
                 err = max(err, (out.float() - ref.float()).abs().max().item())
             max_err = max(max_err, err)
             where = ", unaligned gradients" if unaligned else ""
-            print(f"[spatial-train] pyramid_pool_band_backward {shape} {dt} rows {cuts}{where}: "
+            print(f"{tag} pyramid_pool_band_backward {shape} {dt} rows {cuts}{where}: "
                   f"ok, each band bit-equal to the dense backward kernel's rows and on "
                   f"repeat; max |d| from the plain version {err:.3e}", flush=True)
     torch.cuda.synchronize()
@@ -3021,17 +3050,18 @@ def band_backward_bound_ms(shape, element_size):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def time_band_backward(ppm_pool, torch, card) -> dict:
-    """(a), timed: the first band of each BAND_BACKWARD_TIMED cut warm and
-    L2-cold beside its bound, its plain version, and the dense backward on
-    the whole map, cold; one kernel per call under the profiler. Returns
-    {(shape, bands, dtype): (warm, cold, plain, bound, bound_by)}."""
+def time_band_backward(ppm_pool, torch, card, timed=BAND_BACKWARD_TIMED, base=8) -> dict:
+    """(a), timed: the first band of each cut of ``timed`` (at stride
+    ``base``) warm and L2-cold beside its bound, its plain version, and the
+    dense backward on the whole map, cold; one kernel per call under the
+    profiler. Returns {(shape, bands, dtype): (warm, cold, plain, bound,
+    bound_by)}."""
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     lib = ppm_pool._lib()
     out = {}
-    for shape, bands in BAND_BACKWARD_TIMED:
+    for shape, bands in timed:
         n, h, w, c = shape
-        cuts = _cuts(shape, bands)
+        cuts = _cuts(shape, bands, base)
         r0, hb = cuts[0], cuts[1] - cuts[0]
         for dt in ("bfloat16", "float32"):
             dtype = getattr(torch, dt)
@@ -3059,34 +3089,38 @@ def time_band_backward(ppm_pool, torch, card) -> dict:
     return out
 
 
-def _split_batch(torch, seed, n, h, w, device):
+def _split_batch(torch, seed, n, h, w, device, label_stride=8):
     import numpy as np
 
     rng = np.random.RandomState(seed)
     host = {"img_data": rng.randn(n, h, w, 3).astype(np.float32),
-            "seg_label": rng.randint(-1, 150, (n, h // 8, w // 8)).astype(np.int32)}
+            "seg_label": rng.randint(-1, 150, (n, h // label_stride, w // label_stride))
+            .astype(np.int32)}
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
-def _split_step(torch, ppm_pool, name, cfg, batch, spatial, device):
+def _split_step(torch, ppm_pool, name, cfg, batch, spatial, device, keys=SPLIT_GRADS,
+                pooled=True):
     """One step from the seeded weights on ``batch``, dropout from step 0's
-    generator; the band paths' launches counted. Returns (loss, acc, the
-    SPLIT_GRADS gradients and every BN buffer on the CPU)."""
+    generator; the pool's launches counted (``pooled``: the model has a
+    pyramid pool). Returns (loss, acc, the gradients of ``keys`` and every
+    BN buffer on the CPU)."""
     from semseg_tpu_torch.parallel import dropout_generator, train_step
 
     state = _train_model(torch, cfg, device, spatial=spatial)
-    bands = len(spatial) if spatial else 0
+    bands = len(spatial) if spatial and pooled else 0
 
     def step():
         m = train_step(state, batch, dropout_generator(0, 0))
         return float(m["loss"]), float(m["acc"])
 
-    (loss, acc), _, dense, valid = _run_path(name, step, ppm_pool, torch, backward=0 if bands else 1,
+    dense_want = 0 if spatial or not pooled else 1
+    (loss, acc), _, dense, valid = _run_path(name, step, ppm_pool, torch, backward=dense_want,
                                              band=bands, band_backward=bands)
-    if (dense, valid) != ((0, 0) if bands else (1, 0)):
+    if (dense, valid) != (dense_want, 0):
         raise RuntimeError(f"{name}: pool launches dense {dense} / valid {valid}")
     params = dict(state.model.named_parameters())
-    grads = {k: params[k].grad.to("cpu", copy=True) for k in SPLIT_GRADS}
+    grads = {k: params[k].grad.to("cpu", copy=True) for k in keys}
     stats = {k: v.to("cpu", copy=True) for k, v in state.model.state_dict().items()
              if "running" in k}
     del state
@@ -3094,27 +3128,31 @@ def _split_step(torch, ppm_pool, name, cfg, batch, spatial, device):
     return loss, acc, grads, stats
 
 
-def split_step_against_unsplit(torch, ppm_pool, card, devices, tag, shape=SPLIT_TRAIN):
-    """(b) and the multi-card check: one float32 step (TF32 off,
-    deterministic algorithms) of the flagship at full width on a batch of
-    ``shape`` (N, H, W), its images split over each device list of
-    ``devices``, against the unsplit step on cuda:0 from the same weights,
-    batch and dropout generator; each SPLIT_GRADS gradient within its
-    SPLIT_GRAD_LIMITS[shape] in relative norm. Returns the band launches."""
-    limits = SPLIT_GRAD_LIMITS[shape]
+def split_step_against_unsplit(torch, ppm_pool, card, devices, tag, shape=SPLIT_TRAIN,
+                               path=CFG, limits=None):
+    """(b), 14 (c) and the multi-card check: one float32 step (TF32 off,
+    deterministic algorithms) of ``path``'s model (the flagship) at full
+    width on a batch of ``shape`` (N, H, W), its images split over each
+    device list of ``devices``, against the unsplit step on cuda:0 from the
+    same weights, batch and dropout generator; each gradient of ``limits``
+    (SPLIT_GRAD_LIMITS[shape]) within its limit in relative norm. Returns
+    the band launches."""
+    limits = SPLIT_GRAD_LIMITS[shape] if limits is None else limits
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _cfg("TPU.compute_dtype", "float32")
+    cfg = _cfg("TPU.compute_dtype", "float32", path=path)
+    pooled = cfg.MODEL.arch_decoder in POOLED_DECODERS
     dev0 = "cuda:0" if CARD == "cuda" else CARD
-    batch = _split_batch(torch, 15, *shape, dev0)
+    batch = _split_batch(torch, 15, *shape, dev0, cfg.DATASET.segm_downsampling_rate)
     launches = 0
     try:
         with _deterministic(torch):
-            ref = _split_step(torch, ppm_pool, f"{tag} unsplit step", cfg, batch, None, dev0)
+            ref = _split_step(torch, ppm_pool, f"{tag} unsplit step", cfg, batch, None, dev0,
+                              tuple(limits), pooled)
             for spatial in devices:
                 got = _split_step(torch, ppm_pool, f"{tag} split step over {spatial}", cfg,
-                                  batch, spatial, dev0)
-                launches += len(spatial)
+                                  batch, spatial, dev0, tuple(limits), pooled)
+                launches += len(spatial) if pooled else 0
                 loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
                 grads = {k: float((got[2][k] - v).norm() / v.norm()) for k, v in ref[2].items()}
                 stat_rel, stat_key, iters_equal = 0.0, "", True
@@ -3133,9 +3171,10 @@ def split_step_against_unsplit(torch, ppm_pool, card, devices, tag, shape=SPLIT_
                       f"norm error: "
                       + ", ".join(f"{k} {v:.3e} (limit {limits[k]})" for k, v in grads.items())
                       + f"; BN statistics max |d| / max {stat_rel:.2e} ({stat_key}; limit "
-                      f"{STAT_REL}); iter equal {iters_equal}; {len(spatial)} band forward and "
-                      f"{len(spatial)} band backward launches, no dense ones (card: {card})",
-                      flush=True)
+                      f"{STAT_REL}); iter equal {iters_equal}; "
+                      + (f"{len(spatial)} band forward and {len(spatial)} band backward "
+                         "launches, no dense ones" if pooled else "no pool launches")
+                      + f" (card: {card})", flush=True)
                 if not (loss_rel < LOSS_REL and abs(got[1] - ref[1]) < DP_ACC
                         and stat_rel < STAT_REL and iters_equal
                         and all(v < limits[k] for k, v in grads.items())):
@@ -3180,22 +3219,23 @@ def split_loss_falls_and_timing(torch, ppm_pool, root, odgt, card):
     return 10 + more, times
 
 
-def split_timing(torch, ppm_pool, lists, card, tag):
-    """ms/step and peak memory of the flagship's bf16 step at SPLIT_TRAIN
-    (default algorithms), unsplit (``None``) and split over each device
-    list of ``lists``: median of SPLIT_TIMED_STEPS after a warm-up step.
-    Returns (the band launches, {bands: (ms, GiB)})."""
+def split_timing(torch, ppm_pool, lists, card, tag, path=CFG, steps=1 + SPLIT_TIMED_STEPS):
+    """ms/step and peak memory of the bf16 step of ``path``'s model (the
+    flagship) at SPLIT_TRAIN (default algorithms), unsplit (``None``) and
+    split over each device list of ``lists``: median of ``steps`` - 1
+    after a warm-up step. Returns (the band launches, {bands: (ms, GiB)})."""
     import numpy as np
 
     from semseg_tpu_torch.parallel import dropout_generator, train_step
 
     dev0 = "cuda:0" if CARD == "cuda" else CARD
-    batch = _split_batch(torch, 16, *SPLIT_TRAIN, dev0)
-    steps = 1 + SPLIT_TIMED_STEPS
+    cfg = _cfg(path=path)
+    pooled = cfg.MODEL.arch_decoder in POOLED_DECODERS
+    batch = _split_batch(torch, 16, *SPLIT_TRAIN, dev0, cfg.DATASET.segm_downsampling_rate)
     launches, times = 0, {}
     for spatial in lists:
-        bands = len(spatial) if spatial else 0
-        state = _train_model(torch, _cfg(), dev0, spatial=spatial)
+        bands = len(spatial) if spatial and pooled else 0
+        state = _train_model(torch, cfg, dev0, spatial=spatial)
 
         def run():
             out = []
@@ -3206,17 +3246,19 @@ def split_timing(torch, ppm_pool, lists, card, tag):
                 out.append(time.perf_counter() - tic)
             return out
 
-        name = f"over {sorted(set(map(str, spatial)))} in {bands} bands" if bands else "unsplit"
+        name = (f"over {sorted(set(map(str, spatial)))} in {len(spatial)} bands" if spatial
+                else "unsplit")
         seconds, _, _, _ = _run_path(f"{tag} {name}, {steps} steps", run, ppm_pool, torch,
-                                     backward=0 if bands else steps, band=bands * steps,
-                                     band_backward=bands * steps)
+                                     backward=0 if spatial or not pooled else steps,
+                                     band=bands * steps, band_backward=bands * steps)
         launches += bands * steps
         times[name] = (float(np.median(seconds[1:])) * 1e3,
                        torch.cuda.max_memory_allocated() / 2**30)
         del state
         torch.cuda.empty_cache()
-    print(f"{tag} ms/step, flagship bf16, batch {SPLIT_TRAIN[0]} at "
-          f"{SPLIT_TRAIN[1]}x{SPLIT_TRAIN[2]}, median of {SPLIT_TIMED_STEPS} after a warm-up "
+    print(f"{tag} ms/step, {cfg.MODEL.arch_encoder} + {cfg.MODEL.arch_decoder} bf16, batch "
+          f"{SPLIT_TRAIN[0]} at {SPLIT_TRAIN[1]}x{SPLIT_TRAIN[2]}, median of {steps - 1} after "
+          "a warm-up "
           f"(peak device memory of the first card): " + "; ".join(
               f"{k} {t:.1f} ms, {m:.2f} GiB" for k, (t, m) in times.items())
           + f" (card: {card})", flush=True)
@@ -3274,6 +3316,30 @@ def spatial_train_phase(work, torch, ppm_pool, card, root, odgt):
     return launches, err, times, step_ms, band_err
 
 
+def zoo_spatial_multi_card(zoo_ckpts, val_dir, odgt, torch, card, n):
+    """The multi-card check's part of phase 14: UPerNet's engine split over
+    cuda:0 to cuda:n-1 against one card in float32 (TF32 off), within
+    ZOO_UPERNET_SCORE on phase 14 (b)'s images."""
+    from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
+    from semseg_tpu_torch.cli.eval import build_engines
+
+    name = ZOO_SPATIAL_CONFIGS[0]
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _cfg("DIR", zoo_ckpts[name], "TPU.compute_dtype", "float32",
+               path=os.path.join(HERE, "config", name))
+    resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
+    pyrs, labels = _val_items(cfg, val_dir, odgt)
+    one = build_engines(cfg, 1, device="cuda:0", fetch_dtype=None)[0]
+    many = build_engines(cfg, 1, device="cuda", fetch_dtype=None, spatial=n)[0]
+    err = max((many.mean_scores(p, lab.shape) - one.mean_scores(p, lab.shape)).abs().max().item()
+              for p, lab in list(zip(pyrs, labels))[:ZOO_SPATIAL_IMAGES])
+    print(f"[multi] {name} spatial engine over {', '.join(map(str, many.spatial_devices))} "
+          f"against one card, float32: max |dscore| {err:.3e} (limit {ZOO_UPERNET_SCORE}; "
+          f"card: {card})", flush=True)
+    if err > ZOO_UPERNET_SCORE:
+        raise RuntimeError(f"{name}'s spatial engine over {n} cards disagrees with one card")
+
+
 def spatial_train_multi_card(work, torch, ppm_pool, card, root, odgt, n):
     """The multi-card check's training part: the split step with its bands
     on distinct cards against one card (as (b)), then ``cli.train --device
@@ -3304,6 +3370,273 @@ def spatial_train_multi_card(work, torch, ppm_pool, card, root, odgt, n):
           f"cards): {TRAIN_ITERS} steps at batch 2 per group, bf16, full width; per-step "
           f"global losses {losses}; {wall:.1f} s wall (spawn, model builds and the "
           f"checkpoint included; card: {card})", flush=True)
+
+
+# Phase 14: the spatial zoo (``cli.eval --spatial``, ``cli.train TPU.spatial``
+# for UPerNet on the non-dilated ResNet-50 and for HRNetV2, whose band plans
+# cut the canvas at stride 32). (a) the pool's band form and band backward on
+# UPerNet's conv5 maps; (b) each config split in 2 and 4 bands on cuda:0
+# against its unsplit engine; (c) one float32 step split in 2 and 4 bands
+# against the unsplit step at batch 8; (d) bf16 ms/step and peak memory
+# unsplit and split, and ``cli.eval --spatial 2`` / ``cli.train ...
+# TPU.spatial 2`` of both configs. The configs' weights are the zoo phase's
+# seeded .pth pairs.
+ZOO_SPATIAL_CONFIGS = ["ade20k-resnet50-upernet.yaml", "ade20k-hrnetv2.yaml"]
+# (a) eval: conv5 of a 600x800 canvas (stride 32: 19 x 25) in 2 and 4
+# bands of its BandPlan, at full extents and at a 480x600 image's; the band
+# form on the training maps (bench.py's 448x608 canvas, batch 2 and 8) at
+# full extents; the band backward there, and in bands of 1 to 3 rows.
+ZOO_BAND_SHAPE = (1, 19, 25, 2048)
+ZOO_BAND_CHECKS = [(ZOO_BAND_SHAPE, [[19, 25]], 2), (ZOO_BAND_SHAPE, [[19, 25]], 4),
+                   (ZOO_BAND_SHAPE, [[15, 19]], 4), ((2, 14, 19, 2048), [[14, 19]] * 2, 2),
+                   ((2, 14, 19, 2048), [[14, 19]] * 2, 4), ((8, 14, 19, 2048), [[14, 19]] * 8, 4)]
+ZOO_BAND_BACKWARD_CHECKS = [((2, 14, 19, 2048), 2), ((2, 14, 19, 2048), 4),
+                            ((2, 14, 19, 2048), (0, 1, 3, 6, 9, 12, 14)),
+                            ((8, 14, 19, 2048), 2), ((8, 14, 19, 2048), 4)]
+ZOO_BAND_BACKWARD_TIMED = [((2, 14, 19, 2048), 2), ((8, 14, 19, 2048), 2)]
+# (b): the first images of phase 6's val set, each config's own scales.
+# HRNetV2 (logits ~1e8, one-hot probabilities) within SPATIAL_SCORE; UPerNet
+# within ZOO_UPERNET_SCORE, tests/test_torch_zoo.py's bar for its
+# random-weight logits (~1e3), where the bands' other summation orders move
+# a near-one-hot softmax more than the flagship's.
+ZOO_SPATIAL_IMAGES = 2
+ZOO_UPERNET_SCORE = 1e-3
+# (c): the limits of PR 11's batch-8 step (SPLIT_GRAD_LIMITS[BENCH_TRAIN]):
+# the stem's conv and the deep layers 0.06, the last conv, one layer from
+# the loss, 3e-4. UPerNet's scale-1 ppm_conv (its BN normalises a map of N
+# distinct values, as the flagship's ppm.0.1 does at 0.015) read 1.6e-2 in
+# a float32 rehearsal on the CPU (batch 8 at 128x64, 2 bands): 0.05, three
+# times that.
+ZOO_SPLIT_GRAD_LIMITS = {
+    "ade20k-resnet50-upernet.yaml": {
+        "encoder.conv1.weight": 0.06, "decoder.ppm_conv.0.0.weight": 0.05,
+        "decoder.fpn_in.0.0.weight": 0.06, "decoder.conv_last.1.weight": 3e-4},
+    "ade20k-hrnetv2.yaml": {
+        "encoder.conv1.weight": 0.06, "encoder.stage4.0.fuse_layers.0.1.0.weight": 0.06,
+        "decoder.conv_last.weight": 3e-4},
+}
+ZOO_TIMED_STEPS = 2
+
+
+def zoo_band_kernels(ppm_pool, torch, card):
+    """(a): the band form and the band backward on UPerNet's stride-32 conv5
+    maps against their plain versions, bit-equal on repeat, each backward
+    band bit-equal to the dense backward's rows; timed L2-cold beside their
+    bounds. Returns (the band form's largest error, the band backward's,
+    the band form's times, the band backward's)."""
+    band_err = check_band_kernel(ppm_pool, torch, [
+        (shape, extents, _cuts(shape, bands, 32)) for shape, extents, bands in ZOO_BAND_CHECKS],
+        "[spatial-zoo]")
+    backward_err = check_band_backward_kernel(ppm_pool, torch, ZOO_BAND_BACKWARD_CHECKS,
+                                              "[spatial-zoo]", base=32)
+    band_times = time_band_kernel(ppm_pool, torch, card, shape=ZOO_BAND_SHAPE, base=32)
+    backward_times = time_band_backward(ppm_pool, torch, card, ZOO_BAND_BACKWARD_TIMED, base=32)
+    return band_err, backward_err, band_times, backward_times
+
+
+def _zoo_band_launches(cfg, pyrs, n):
+    """Band launches of a split engine over ``pyrs`` in ``n`` bands: one
+    per non-empty band of each level's bucket canvas (a plan cut at the
+    encoder's coarsest stride), 0 for a decoder without a pyramid pool."""
+    from semseg_tpu_torch.data.dataset import _effective_lattice
+    from semseg_tpu_torch.parallel.spatial import BandPlan
+
+    if cfg.MODEL.arch_decoder not in POOLED_DECODERS:
+        return 0
+    step = _effective_lattice(cfg.TPU.eval_bucket_step, cfg.DATASET.padding_constant)
+    base = 8 if cfg.MODEL.arch_encoder.endswith("dilated") else 32
+    return sum(BandPlan(-(-lvl.shape[1] // step) * step, n, base).count
+               for p in pyrs for lvl in p)
+
+
+def _level_logits(base, eng, level, torch):
+    """One uint8 level's f32 logits through the unsplit engine ``base`` and
+    the split engine ``eng``: the largest relative difference."""
+    import numpy as np
+
+    h, w = level.shape[1:3]
+    ph, pw = base._bucket_key(h, w)
+    img = torch.from_numpy(np.pad(level, ((0, 0), (0, ph - h), (0, pw - w), (0, 0)))).to(
+        base.device)
+    hw = torch.tensor([[h, w]], dtype=torch.int32, device=base.device)
+    with torch.inference_mode():
+        a = base._logits_raw_fn(img, hw, to_fetch=False).float()
+        b = eng._logits_spatial(img, hw).float()
+    return ((b - a).abs().max() / a.abs().max()).item()
+
+
+def _latency_s(engine, pyrs, labels, torch):
+    """Median single-image latency (``predict``) of an engine that has run
+    these images once (cuDNN has seen every level's shapes)."""
+    import numpy as np
+
+    times = []
+    for p, lab in zip(pyrs, labels):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        engine.predict(p, lab.shape)
+        times.append(time.perf_counter() - tic)
+    return float(np.median(times))
+
+
+def zoo_spatial_engines(zoo_ckpts, val_dir, odgt, torch, ppm_pool, card):
+    """(b): each config of ZOO_SPATIAL_CONFIGS at full width on cuda:0, each
+    level split in 2 and 4 bands, against the unsplit bucketed engine over
+    the first ZOO_SPATIAL_IMAGES of phase 6's images: float32 (TF32 off)
+    within its score limit, with the logits' largest relative difference
+    on the first level printed; bf16 argmax agreement at least
+    SPATIAL_AGREE; the band launches counted (UPerNet's PPM: one per band
+    and non-empty band of a level; HRNetV2 + C1 pools nothing); single-image
+    latency in bf16,
+    unsplit and split. Returns the band launches."""
+    from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
+    from semseg_tpu_torch.cli.eval import build_engines
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    launches = 0
+    try:
+        for name in ZOO_SPATIAL_CONFIGS:
+            path = os.path.join(HERE, "config", name)
+            for dt in ("float32", "bfloat16"):
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+                cfg = _cfg("DIR", zoo_ckpts[name], "TPU.compute_dtype", dt, path=path)
+                resolve_reference_checkpoint(cfg, cfg.VAL.checkpoint)
+                limit = ZOO_UPERNET_SCORE if cfg.MODEL.arch_decoder.startswith("upernet") \
+                    else SPATIAL_SCORE
+                tag = f"{cfg.MODEL.arch_encoder} + {cfg.MODEL.arch_decoder}"
+                pyrs, labels = _val_items(cfg, val_dir, odgt)
+                pyrs, labels = pyrs[:ZOO_SPATIAL_IMAGES], labels[:ZOO_SPATIAL_IMAGES]
+                levels = sum(len(p) for p in pyrs)
+                fetch = None if dt == "float32" else "bfloat16"
+                base = build_engines(cfg, 1, device="cuda:0", fetch_dtype=fetch)[0]
+                refs = [base.mean_scores(p, lab.shape) for p, lab in zip(pyrs, labels)]
+                latency = {}
+                for n in SPATIAL_BANDS:
+                    eng = build_engines(cfg, 1, device="cuda:0", fetch_dtype=fetch,
+                                        spatial=n)[0]
+
+                    def run():
+                        return [eng.mean_scores(p, lab.shape) for p, lab in zip(pyrs, labels)]
+
+                    want = _zoo_band_launches(cfg, pyrs, n)
+                    outs, wall, dense, valid = _run_path(
+                        f"spatial zoo {tag}, {n} bands on cuda:0, {dt}", run, ppm_pool, torch,
+                        band=want)
+                    launches += want
+                    err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+                    agree = min((o.argmax(0) == r.argmax(0)).float().mean().item()
+                                for o, r in zip(outs, refs))
+                    rel = _level_logits(base, eng, pyrs[0][0], torch)
+                    print(f"[spatial-zoo] {tag}, {n} bands on cuda:0, {dt}: max |dscore| "
+                          f"{err:.3e} (limit {limit if dt == 'float32' else '-'}), argmax "
+                          f"agreement (worst image) {agree:.6f} against the unsplit engine over "
+                          f"{len(pyrs)} images, {levels} levels; logits of the first level: "
+                          f"max |d| / max {rel:.3e}; {want} band launches, dense {dense} / "
+                          f"valid {valid}; {wall / len(pyrs):.4f} s/image (first pass, card: "
+                          f"{card})", flush=True)
+                    ok = err <= limit if dt == "float32" else agree >= SPATIAL_AGREE
+                    if not ok or (dense, valid) != (0, 0):
+                        raise RuntimeError(f"the spatial engine of {name} ({n} bands, {dt}) "
+                                           f"disagrees with the unsplit engine: {err:.3e} / "
+                                           f"{agree:.6f}")
+                    if dt == "bfloat16":
+                        latency[n] = _latency_s(eng, pyrs, labels, torch)
+                    del eng
+                if dt == "bfloat16":
+                    latency[1] = _latency_s(base, pyrs, labels, torch)
+                    print(f"[spatial-zoo] {tag} single-image latency, bf16, "
+                          f"{len(cfg.DATASET.imgSizes)} scales, median of {len(pyrs)} images "
+                          f"after the checked pass: unsplit {latency[1] * 1e3:.1f} ms, "
+                          + ", ".join(
+                              f"{n} bands on cuda:0 {latency[n] * 1e3:.1f} ms "
+                              f"({latency[n] / latency[1]:.2f}x)" for n in SPATIAL_BANDS)
+                          + f" (card: {card})", flush=True)
+                del base
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return launches
+
+
+def zoo_spatial_cli(work, zoo_ckpts, root, odgt, torch, ppm_pool, card):
+    """(d), the CLIs: ``cli.eval --device cuda:0 --spatial 2`` over one
+    image and ``cli.train --device cuda:0 ... TPU.spatial 2`` for one epoch
+    of phase 8's data, for each config. Returns (band launches, band
+    backward launches)."""
+    import numpy as np
+
+    from semseg_tpu_torch.cli import eval as eval_cli, train as train_cli
+
+    val_dir = os.path.join(work, "zoo_spatial_val")
+    val_odgt = _write_val_set(val_dir, ZOO_IMAGES[:1], seed=14)
+    band = backward = 0
+    for name in ZOO_SPATIAL_CONFIGS:
+        path = os.path.join(HERE, "config", name)
+        cfg = _cfg(path=path)
+        pooled = cfg.MODEL.arch_decoder in POOLED_DECODERS
+        tag = f"{cfg.MODEL.arch_encoder} + {cfg.MODEL.arch_decoder}"
+        levels = len(cfg.DATASET.imgSizes)
+        want = _zoo_band_launches(cfg, _val_items(cfg, val_dir, val_odgt)[0], 2)
+        (miou, acc, _, raw), wall, dense, valid = _run_path(
+            f"spatial zoo {tag}: cli.eval --device cuda:0 --spatial 2", lambda: eval_cli.main(
+                ["--cfg", path, "--device", "cuda:0", "--spatial", "2", "DIR",
+                 zoo_ckpts[name], "DATASET.root_dataset", val_dir, "DATASET.list_val",
+                 val_odgt]), ppm_pool, torch, band=want)
+        if (dense, valid) != (0, 0) or not raw["pix_count"] or not 0.0 <= miou <= 1.0:
+            raise RuntimeError(f"{name} cli.eval --spatial 2: launches {dense} / {valid}, "
+                               f"mIoU {miou}")
+        band += want
+        out = os.path.join(work, "zoo_spatial_train", name[:-5])
+        steps = 2 * TRAIN_ITERS if pooled else 0
+        (state, history), train_wall, dense, valid = _run_path(
+            f"spatial zoo {tag}: cli.train --device cuda:0 TPU.spatial 2",
+            lambda: train_cli.main(["--cfg", path, "--device", "cuda:0", "--devices", "1",
+                                    "DIR", out, *_train_cfg_opts(root, odgt),
+                                    "TRAIN.num_epoch", "1", "TPU.spatial", "2"]),
+            ppm_pool, torch, band=steps, band_backward=steps)
+        losses = history["train"]["loss"]
+        pair = [os.path.join(out, f"{p}_epoch_1.pth") for p in ("encoder", "decoder")]
+        if (dense, valid) != (0, 0) or not all(np.isfinite(losses)) or not all(
+                os.path.exists(p) for p in pair) or state.step != TRAIN_ITERS:
+            raise RuntimeError(f"{name} cli.train TPU.spatial 2: launches {dense}/{valid}, "
+                               f"losses {losses}, files {os.listdir(out)}")
+        band += steps
+        backward += steps
+        print(f"[spatial-zoo] {tag}: cli.eval --device cuda:0 --spatial 2 over one image, "
+              f"{levels} scales: mIoU {miou:.4f} (random weights), {want} band launches, "
+              f"{wall:.1f} s wall; cli.train --device cuda:0 TPU.spatial 2: {TRAIN_ITERS} "
+              f"steps at batch 2, bf16, losses at the display steps "
+              f"{[round(x, 4) for x in losses]}, {steps} band forward and backward launches, "
+              f"wrote the epoch_1 pair, {train_wall:.1f} s wall (model builds and loader "
+              f"start included; card: {card})", flush=True)
+    return band, backward
+
+
+def spatial_zoo_phase(work, torch, ppm_pool, card, zoo_ckpts, val_dir, odgt, root, train_odgt):
+    """Phase 14: (a)-(d) above. Returns (band launches, band backward
+    launches, the band form's largest error, the band backward's, their
+    times)."""
+    start = time.perf_counter()
+    band_err, backward_err, band_times, backward_times = zoo_band_kernels(ppm_pool, torch,
+                                                                          card)
+    band = zoo_spatial_engines(zoo_ckpts, val_dir, odgt, torch, ppm_pool, card)
+    backward = 0
+    dev0 = "cuda:0" if CARD == "cuda" else CARD
+    for name in ZOO_SPATIAL_CONFIGS:
+        path = os.path.join(HERE, "config", name)
+        more = split_step_against_unsplit(torch, ppm_pool, card, [[dev0] * 2, [dev0] * 4],
+                                          "[spatial-zoo] (c)", BENCH_TRAIN, path,
+                                          ZOO_SPLIT_GRAD_LIMITS[name])
+        band, backward = band + more, backward + more
+        more, _ = split_timing(torch, ppm_pool, [None, [dev0] * 2, [dev0] * 4], card,
+                               "[spatial-zoo] (d)", path, 1 + ZOO_TIMED_STEPS)
+        band, backward = band + more, backward + more
+    more, more_backward = zoo_spatial_cli(work, zoo_ckpts, root, train_odgt, torch, ppm_pool,
+                                          card)
+    band, backward = band + more, backward + more_backward
+    print(f"[spatial-zoo] phase 14 took {time.perf_counter() - start:.1f} s; {band} band and "
+          f"{backward} band backward launches (card: {card})", flush=True)
+    return band, backward, band_err, backward_err, band_times, backward_times
 
 
 def main(argv=None) -> int:
@@ -3387,11 +3720,18 @@ def main(argv=None) -> int:
                                                      val_dir, odgt, compare)
         split_launches, band_backward_err, band_backward_times, _, train_band_err = \
             spatial_train_phase(work, torch, ppm_pool, card, train_root, train_odgt)
-        band_launches += split_launches
-        band_err = max(band_err, train_band_err)
+        print(f"[spatial] band launches: phase 12 {band_launches}; phase 13 {split_launches} "
+              f"band and {split_launches} band backward", flush=True)
+        zoo_band, zoo_backward, zoo_band_err, zoo_backward_err, zoo_band_times, \
+            zoo_backward_times = spatial_zoo_phase(work, torch, ppm_pool, card, zoo_ckpts,
+                                                   val_dir, odgt, train_root, train_odgt)
+        band_launches += split_launches + zoo_band
+        split_launches += zoo_backward
+        band_err = max(band_err, train_band_err, zoo_band_err)
+        band_backward_err = max(band_backward_err, zoo_backward_err)
         if torch.cuda.device_count() > 1:
             multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_root,
-                             train_odgt)
+                             train_odgt, zoo_ckpts)
 
     def timed(case):
         return dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by"), case))
@@ -3428,7 +3768,9 @@ def main(argv=None) -> int:
          "launches": band_launches, "max_abs_err": band_err,
          # bf16, the first of 2 bands; no single PyTorch call computes the
          # sums.
-         **timed(band_times[(2, "bfloat16")]), "library_ms": None},
+         **timed(band_times[(2, "bfloat16")]), "library_ms": None,
+         # UPerNet's stride-32 conv5 of a 600x800 canvas (phase 14).
+         "at_1x19x25x2048": timed(zoo_band_times[(2, "bfloat16")])},
         {"name": "pyramid_pool_band_backward", **entry,
          # No Pallas backward exists: under the hybrid mesh JAX
          # differentiates XLA's pool over the sharded height.
@@ -3437,7 +3779,9 @@ def main(argv=None) -> int:
          # bf16, the first of 2 bands of the flagship's batch-2 training
          # map; no single PyTorch call computes a band's input gradient.
          **timed(band_backward_times[(BAND_BACKWARD_TIMED[0][0], 2, "bfloat16")]),
-         "library_ms": None},
+         "library_ms": None,
+         # UPerNet's batch-2 training conv5 at 448x608 (phase 14).
+         "at_2x14x19x2048": timed(zoo_backward_times[((2, 14, 19, 2048), 2, "bfloat16")])},
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

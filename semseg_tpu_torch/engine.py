@@ -49,7 +49,7 @@ from semseg_tpu_torch.data.transforms import (
 from semseg_tpu_torch.ops.preproc import normalize_255, normalize_u8_masked, valid_mask
 from semseg_tpu_torch.ops.resize import resize_bilinear
 from semseg_tpu_torch.ops.resize_dynamic import pil_resize_matrix, resize_matrix
-from semseg_tpu_torch.models.segmentation import banded_logits, check_banded
+from semseg_tpu_torch.models.segmentation import band_base, banded_logits, check_banded
 from semseg_tpu_torch.parallel.spatial import BandPlan, Bands, gather, split_rows
 from semseg_tpu_torch.upload import Upload
 
@@ -146,7 +146,7 @@ class InferenceEngine:
         offset), the banded forward runs, and the logit bands are gathered
         on the first device and rounded to ``fetch_dtype``."""
         hp, wp = img_u8.shape[1:3]
-        plan = BandPlan(hp, len(self.spatial_devices))
+        plan = BandPlan(hp, len(self.spatial_devices), band_base(self.model))
         devices = self.spatial_devices[:plan.count]
         hws = [hw.to(d, non_blocking=True) for d in devices]
         img = split_rows(img_u8.permute(0, 3, 1, 2), plan, devices)

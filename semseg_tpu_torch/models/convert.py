@@ -157,7 +157,8 @@ def _leaves(tree, path=()):
         yield path, np.asarray(tree)
 
 
-def _component(variables, component: str, prefix_fn) -> Dict[str, torch.Tensor]:
+def _component(variables, component: str, prefix_fn,
+               dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, arr in _leaves(variables.get(coll, {}).get(component, {})):
@@ -176,17 +177,19 @@ def _component(variables, component: str, prefix_fn) -> Dict[str, torch.Tensor]:
                         "var": "running_var"}[leaf]
                 key = f"{prefix_fn(mod_path)}.{name}"
                 value = arr
-            out[key] = torch.tensor(np.asarray(value, np.float32))
+            out[key] = torch.tensor(np.asarray(value)).to(dtype)
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return out
 
 
-def state_dicts_from_jax(variables, arch_encoder: str, arch_decoder: str):
+def state_dicts_from_jax(variables, arch_encoder: str, arch_decoder: str,
+                         dtype: torch.dtype = torch.float32):
     """(encoder, decoder) state_dicts from the JAX package's variables.
 
     ``variables`` is the nested ``{'params': ..., 'batch_stats': ...}`` dict
-    of numpy arrays (``jax.tree.map(np.asarray, variables)``).
+    of numpy arrays (``jax.tree.map(np.asarray, variables)``); the tensors
+    come out in ``dtype`` (float32, as checkpoints hold them).
     """
-    return (_component(variables, "encoder", _encoder_prefix(arch_encoder.lower())),
-            _component(variables, "decoder", _decoder_prefix(arch_decoder.lower())))
+    return (_component(variables, "encoder", _encoder_prefix(arch_encoder.lower()), dtype),
+            _component(variables, "decoder", _decoder_prefix(arch_decoder.lower()), dtype))

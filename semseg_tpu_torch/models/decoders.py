@@ -24,23 +24,24 @@ it, so the global pools never ingest the canvas padding. C1 and C1DeepSup
 have no global op and ignore it; UPerNet's FPN resizes stay full-canvas, as
 in the JAX package.
 
-``banded_logits`` is the eval forward of C1, C1DeepSup, PPM and PPMDeepsup
-over a conv5 split in row bands across devices (``cli.eval --spatial``,
-``parallel/spatial.py``): the pyramid's bins are summed per band by the
-band form of the pool kernel, added on the first band's device and divided
-by the bin areas there, the branch convs run on the small grids, each band
-upsamples its own rows of them, and the 3x3 convs take their halo rows.
-``banded_train_logits`` is their training forward over banded conv4 and
-conv5 (``cli.train TPU.spatial``), with the one decoder for every band:
-the pyramid pools through ``pyramid_pool_bands`` (the band form over the
-whole map, differentiable through the band backward kernel), the branch
-conv-BN-ReLU runs once on the small grids on the first band's device, each
-band computes its rows of the grids' bilinear upsample to the whole map
-(``resize_bilinear_rows``: the unsplit forward's ``resize_bilinear`` rows
-to rounding, from the grid rows they read), and the deep-supervision head
-runs banded over conv4, after the trunk, so that dropout draws its masks in
-the unsplit order. UPerNet's cross-resolution
-resizes have no banded form yet (ROADMAP item 17c).
+``banded_logits`` is the eval forward of every decoder here over the
+encoder's feature maps split in row bands across devices (``cli.eval
+--spatial``, ``parallel/spatial.py``): the pyramid's bins are summed per
+band by the band form of the pool kernel, added on the first band's device
+and divided by the bin areas there, and each band upsamples its own rows of
+the grids (PPM: after the branch convs, which run on the small grids;
+UPerNet: before its 1x1 ``ppm_conv``s, which then run per band); the 3x3
+convs take their halo rows, and UPerNet's FPN and fusion resize the banded
+levels onto the finer ones' rows (``band_resize``). ``banded_train_logits``
+is their training forward (``cli.train TPU.spatial``), with the one decoder
+for every band: the pyramid pools through ``pyramid_pool_bands`` (the band
+form over the whole map, differentiable through the band backward kernel),
+each band computes its rows of the grids' bilinear upsample to the whole
+map (``resize_bilinear_rows``: the unsplit forward's ``resize_bilinear``
+rows to rounding, from the grid rows they read; PPM's branch
+conv-BN-ReLU runs once on the small grids on the first band's device
+before it), and the deep-supervision head runs banded over conv4, after
+the trunk, so that dropout draws its masks in the unsplit order.
 
 Slot names follow the reference: ``cbr`` and ``cbr_deepsup`` are
 ``conv3x3_bn_relu`` Sequentials; PPM's ``ppm.{i}`` is ``Sequential(pool,
@@ -68,7 +69,14 @@ from semseg_tpu_torch.ops.kernels.ppm_pool import (
 )
 from semseg_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_rows
 from semseg_tpu_torch.ops.resize_dynamic import upsample_grid_valid
-from semseg_tpu_torch.parallel.spatial import Bands, band_apply, band_conv, run_banded
+from semseg_tpu_torch.parallel.spatial import (
+    Bands,
+    band_apply,
+    band_conv,
+    band_resize,
+    cat_bands,
+    run_banded,
+)
 from .layers import BatchNorm2d, Conv2d, ConvBN, Dropout2d, _Act
 
 
@@ -211,13 +219,16 @@ class UPerNet(nn.Module):
             Conv2d(fpn_dim, num_class, 1),
         )
 
-    def forward(self, conv_out, seg_size=None, valid_hw=None):
-        got = tuple(int(c.shape[1]) for c in conv_out)
+    def check_pyramid(self, channels):
+        got = tuple(int(c) for c in channels)
         if got != self.fpn_inplanes:
             raise ValueError(
                 f"UPerNet(fpn_inplanes={self.fpn_inplanes}) fed a {got}-channel "
                 "feature pyramid — encoder/decoder mismatch"
             )
+
+    def forward(self, conv_out, seg_size=None, valid_hw=None):
+        self.check_pyramid(c.shape[1] for c in conv_out)
         conv5 = conv_out[-1]
         valid = None if valid_hw is None else valid_hw[-1]
         pyramid = [conv5] + [conv(_onto_map(p, conv5.shape[2:], valid))
@@ -237,70 +248,110 @@ class UPerNet(nn.Module):
         return _out(self.conv_last(torch.cat(fusion, dim=1)), seg_size)
 
 
-def _banded_ppm_trunk(decoders: Sequence[PPM], conv5: Bands, valid) -> Bands:
-    """``PPM._trunk`` with ``valid_hw`` over a banded conv5: ``valid[j]`` is
-    the (N, 2) extents on band j's device."""
+def _band_grids(conv5: Bands, valid):
+    """The four pyramid grids (NHWC, on the first band's device) of a
+    banded conv5. Pad-aware with ``valid`` (eval; ``valid[j]`` the (N, 2)
+    extents on band j's device): each band's bin sums from the band form
+    of the pool kernel, added there and divided by the bin areas. Without
+    (training): over the whole map through ``pyramid_pool_bands``, which
+    has the band backward."""
+    if valid is None:
+        return pyramid_pool_bands([p.permute(0, 2, 3, 1).contiguous() for p in conv5.parts])
     dev0 = conv5.parts[0].device
-    hw = (conv5.height, conv5.parts[0].shape[3])
+    hw = (conv5.height, conv5.width)
     total = None
     for part, v, (r0, _) in zip(conv5.parts, valid, conv5.rows):
         sums = pyramid_pool_band(part.permute(0, 2, 3, 1).contiguous(), v, r0, hw[0])
         sums = sums.to(dev0, non_blocking=True)
         total = sums if total is None else total + sums
-    grids = band_sums_to_grids(total, valid[0], hw, conv5.parts[0].dtype)
-    branches = [branch[1:](g.permute(0, 3, 1, 2))
-                for branch, g in zip(decoders[0].ppm, grids)]
+    return band_sums_to_grids(total, valid[0], hw, conv5.parts[0].dtype)
+
+
+def _band_upsample(y, conv5: Bands, valid) -> Bands:
+    """An NCHW pyramid grid ``y`` upsampled onto each band's rows of conv5:
+    onto each sample's valid region (eval, ``valid[j]`` on band j's
+    device), or over the whole map (training, ``valid`` None)."""
+    hw = (conv5.height, conv5.width)
     parts = []
-    for part, v, rows in zip(conv5.parts, valid, conv5.rows):
-        ups = [upsample_grid_valid(y.to(part.device, non_blocking=True).permute(0, 2, 3, 1),
-                                   hw, v, rows).permute(0, 3, 1, 2) for y in branches]
-        parts.append(torch.cat([part] + ups, dim=1))
-    return run_banded([d.conv_last for d in decoders], Bands(parts, conv5.plan, conv5.stride))
+    for j, (part, rows) in enumerate(zip(conv5.parts, conv5.rows)):
+        g = y.to(part.device, non_blocking=True)
+        if valid is None:
+            parts.append(resize_bilinear_rows(g, hw, rows))
+        else:
+            parts.append(upsample_grid_valid(g.permute(0, 2, 3, 1), hw, valid[j], rows)
+                         .permute(0, 3, 1, 2))
+    return Bands(parts, conv5.plan, conv5.stride)
 
 
-def banded_logits(decoders, conv5: Bands, valid) -> Bands:
-    """f32 logits at decoder resolution (the eval forward with ``valid_hw``)
-    over a banded conv5; ``decoders[j]`` is band j's copy of the decoder and
-    ``valid[j]`` the (N, 2) int32 extents of conv5 on band j's device."""
+def _banded_ppm_trunk(decoders: Sequence[PPM], conv5: Bands, valid) -> Bands:
+    """``PPM._trunk`` over a banded conv5: with ``valid`` (eval) the
+    pad-aware pools of each band's copy, else (training, ``[decoder]``)
+    the whole map's."""
+    branches = [branch[1:](g.permute(0, 3, 1, 2))
+                for branch, g in zip(decoders[0].ppm, _band_grids(conv5, valid))]
+    pyramid = [conv5] + [_band_upsample(y, conv5, valid) for y in branches]
+    return run_banded([d.conv_last for d in decoders], cat_bands(pyramid))
+
+
+def _banded_upernet(decoders: Sequence[UPerNet], feats: Sequence[Bands], valid) -> Bands:
+    """``UPerNet.forward`` over banded feature maps, its PPM pad-aware with
+    ``valid`` (eval) or over the whole map (training); in JAX's order pool
+    → upsample → conv, then the top-down FPN and the fusion at the finest
+    level, every resize a ``band_resize``."""
+    decoders[0].check_pyramid(f.parts[0].shape[1] for f in feats)
+
+    def each(name, i=None):
+        return [getattr(d, name) if i is None else getattr(d, name)[i] for d in decoders]
+
+    conv5 = feats[-1]
+    pyramid = [conv5] + [run_banded(each("ppm_conv", i),
+                                    _band_upsample(g.permute(0, 3, 1, 2), conv5, valid))
+                         for i, g in enumerate(_band_grids(conv5, valid))]
+    f = run_banded(each("ppm_last_conv"), cat_bands(pyramid))
+
+    fpn_features = [f]
+    for i in reversed(range(len(feats) - 1)):
+        lateral = run_banded(each("fpn_in", i), feats[i])
+        f = lateral.zip(band_resize(f, lateral.stride, lateral.width), torch.add)
+        fpn_features.append(run_banded(each("fpn_out", i), f))
+    fpn_features.reverse()
+
+    first = fpn_features[0]
+    fusion = [first] + [band_resize(p, first.stride, first.width) for p in fpn_features[1:]]
+    return run_banded(each("conv_last"), cat_bands(fusion))
+
+
+def _banded_trunk(decoders, feats: Sequence[Bands], valid) -> Bands:
     d = decoders[0]
+    if isinstance(d, UPerNet):
+        return _banded_upernet(decoders, feats, valid)
     if isinstance(d, PPM):
-        x = _banded_ppm_trunk(decoders, conv5, valid)
-    elif isinstance(d, C1):
-        x = run_banded([m.cbr for m in decoders], conv5)
-        x = run_banded([m.conv_last for m in decoders], x)
-    else:  # UPerNet's cross-resolution resizes have no banded form yet
-        raise NotImplementedError(f"banded {type(d).__name__} (ROADMAP item 17c)")
+        return _banded_ppm_trunk(decoders, feats[-1], valid)
+    if isinstance(d, C1):
+        return run_banded([m.conv_last for m in decoders],
+                          run_banded([m.cbr for m in decoders], feats[-1]))
+    raise NotImplementedError(f"no banded form of decoder {type(d).__name__}")
+
+
+def banded_logits(decoders, feats: Sequence[Bands], valid) -> Bands:
+    """f32 logits at decoder resolution (the eval forward with ``valid_hw``)
+    over the encoder's banded feature maps ``feats``; ``decoders[j]`` is
+    band j's copy of the decoder and ``valid[j]`` the (N, 2) int32 extents
+    of conv5 (``feats[-1]``) on band j's device."""
+    x = _banded_trunk(decoders, feats, valid)
     return x.map(lambda p: p.to(acc_dtype(p.dtype)))
 
 
-def _banded_ppm_train_trunk(d: PPM, conv5: Bands) -> Bands:
-    """``PPM._trunk`` (training, whole-map pools) over a banded conv5."""
-    hw = (conv5.height, conv5.parts[0].shape[3])
-    grids = pyramid_pool_bands([p.permute(0, 2, 3, 1).contiguous() for p in conv5.parts])
-    branches = [branch[1:](g.permute(0, 3, 1, 2)) for branch, g in zip(d.ppm, grids)]
-    parts = []
-    for part, (r0, r1) in zip(conv5.parts, conv5.rows):
-        ups = [resize_bilinear_rows(y.to(part.device, non_blocking=True), hw, (r0, r1))
-               for y in branches]
-        parts.append(torch.cat([part] + ups, dim=1))
-    return run_banded([d.conv_last], Bands(parts, conv5.plan, conv5.stride))
-
-
-def banded_train_logits(d, conv4: Bands, conv5: Bands):
-    """The training forward of C1, C1DeepSup, PPM or PPMDeepsup ``d`` over
-    banded conv4 and conv5 (see the module docstring): f32 logits at
-    decoder resolution as ``Bands``, and the deep-supervision logits where
-    ``d`` has them and is in training mode (else None)."""
-    if isinstance(d, PPM):
-        x = _banded_ppm_train_trunk(d, conv5)
-    elif isinstance(d, C1):
-        x = run_banded([d.conv_last], run_banded([d.cbr], conv5))
-    else:  # UPerNet's cross-resolution resizes have no banded form yet
-        raise NotImplementedError(f"banded {type(d).__name__} (ROADMAP item 17c)")
-    logits = x.map(lambda p: p.to(acc_dtype(p.dtype)))
+def banded_train_logits(d, feats: Sequence[Bands]):
+    """The training forward of decoder ``d`` over the encoder's banded
+    feature maps ``feats`` (see the module docstring): f32 logits at
+    decoder resolution as ``Bands``, and the deep-supervision logits of
+    conv4 (``feats[-2]``) where ``d`` has them and is in training mode
+    (else None)."""
+    logits = _banded_trunk([d], feats, None).map(lambda p: p.to(acc_dtype(p.dtype)))
     if not (d.training and hasattr(d, "cbr_deepsup")):
         return logits, None
-    ds = run_banded([d.cbr_deepsup], conv4)
+    ds = run_banded([d.cbr_deepsup], feats[-2])
     if hasattr(d, "dropout_deepsup"):
         ds = band_apply([d.dropout_deepsup], ds)
     ds = band_conv([d.conv_last_deepsup], ds)

@@ -13,6 +13,15 @@
 * output: the four branches upsampled to 1/4 and concatenated, one
   720-channel map (the encoder returns ``[x]``).
 
+``banded_features`` is the forward of an image split in row bands across
+devices (``parallel/spatial.py``), in eval (one copy of the encoder per
+band's device) and in training (the one encoder for every band): every
+conv with its halo rows (the j < i fusions' strided convs too), BN (over
+the whole map in training), the j > i fusions' 1x1 conv then
+``band_resize`` onto the finer branch's rows, the sum and ReLU per band,
+and the four branches resized to stride 4 and concatenated per band. Its
+band plan is cut at stride 32, the coarsest branch's.
+
 Keys are the reference's: ``conv1``/``bn1``/``conv2``/``bn2``,
 ``layer1.{j}``, ``transition{s}.{i}.{0,1}`` (width change) or
 ``transition{s}.{i}.{j}.{0,1}`` (new branch), ``stage{s}.{m}.branches.{i}.{b}``
@@ -29,9 +38,20 @@ from torch import nn
 import torch.nn.functional as F
 
 from semseg_tpu_torch.ops.resize import resize_bilinear
+from semseg_tpu_torch.parallel.spatial import (
+    Bands,
+    band_apply,
+    band_conv,
+    band_resize,
+    cat_bands,
+    run_banded,
+)
 from .layers import BatchNorm2d, Conv2d, ConvBN
-from .resnet import ResBlock
+from .resnet import ResBlock, banded_block
 
+#: The momentum of every HRNetV2 batch norm (the reference's hrnet.py:14);
+#: the rest of the zoo keeps ``BatchNorm2d``'s 0.001.
+BN_MOMENTUM = 0.1
 STAGE2 = dict(num_modules=1, num_branches=2, num_blocks=4, channels=(48, 96))
 STAGE3 = dict(num_modules=4, num_branches=3, num_blocks=4, channels=(48, 96, 192))
 STAGE4 = dict(num_modules=3, num_branches=4, num_blocks=4, channels=(48, 96, 192, 384))
@@ -117,6 +137,9 @@ class HRNetV2(nn.Module):
                 HRModule(channels, stage["num_blocks"]) for _ in range(stage["num_modules"])
             )))
             prev = channels
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.momentum = BN_MOMENTUM
 
     def forward(self, x):
         x = x.to(self.dtype)
@@ -131,6 +154,55 @@ class HRNetV2(nn.Module):
             xs = getattr(self, f"stage{s}")(xs)
         hw = xs[0].shape[2:]
         return [torch.cat([xs[0]] + [resize_bilinear(b, hw) for b in xs[1:]], dim=1)]
+
+
+def _banded_module(modules: Sequence[HRModule], xs: Sequence[Bands]):
+    """``HRModule.forward`` over banded branches (``modules[j]``: band j's
+    copy, or ``[module]``)."""
+    outs = []
+    for i, x in enumerate(xs):
+        for blocks in zip(*(m.branches[i] for m in modules)):
+            x = banded_block(blocks, x)
+        outs.append(x)
+    if modules[0].fuse_layers is None:
+        return outs
+    fused = []
+    for i, target in enumerate(outs):
+        y = None
+        for j, x in enumerate(outs):
+            if j != i:
+                x = run_banded([m.fuse_layers[i][j] for m in modules], x)
+                if j > i:
+                    x = band_resize(x, target.stride, target.width)
+            y = x if y is None else y.zip(x, torch.add)
+        fused.append(y.map(F.relu))
+    return fused
+
+
+def banded_features(encoders: Sequence[HRNetV2], x: Bands):
+    """``HRNetV2.forward`` over an image in row bands (module docstring):
+    ``[x]``, the 720-channel stride-4 map as ``Bands``; ``encoders[j]`` is
+    band j's copy of the encoder, or ``[encoder]`` the one encoder of
+    every band. The plan must cut strides up to 32."""
+    def each(name):
+        return [getattr(e, name) for e in encoders]
+
+    x = x.map(lambda p: p.to(encoders[0].dtype))
+    x = band_apply(each("bn1"), band_conv(each("conv1"), x)).map(F.relu)
+    x = band_apply(each("bn2"), band_conv(each("conv2"), x)).map(F.relu)
+    for blocks in zip(*each("layer1")):
+        x = banded_block(blocks, x)
+    xs = [x]
+    for s in (2, 3, 4):
+        trans = each(f"transition{s - 1}")
+        xs = [xs[i] if t is None else run_banded([tr[i] for tr in trans],
+                                                 xs[min(i, len(xs) - 1)])
+              for i, t in enumerate(trans[0])]
+        for modules in zip(*each(f"stage{s}")):
+            xs = _banded_module(modules, xs)
+    first = xs[0]
+    return [cat_bands([first] + [band_resize(b, first.stride, first.width)
+                                 for b in xs[1:]])]
 
 
 def hrnetv2(**kw):

@@ -130,18 +130,19 @@ def mobilenetv2dilated(**kw):
 
 
 def banded_features(encoders: Sequence[MobileNetV2Encoder], x: Bands):
-    """The last two feature maps of ``MobileNetV2Encoder.forward`` (after
-    block ``DOWN_IDX[-1]`` and the last block) over an image in row bands;
-    ``encoders[j]`` is band j's copy, or ``[encoder]`` the one encoder of
-    every band. Output stride 8 only (a band plan cuts strides 1-8)."""
+    """The feature maps of ``MobileNetV2Encoder.forward`` (after each block
+    of ``DOWN_IDX`` and after the last block) over an image in row bands,
+    as ``Bands``; ``encoders[j]`` is band j's copy, or ``[encoder]`` the
+    one encoder of every band. The plan must cut strides up to the
+    encoder's output stride."""
     x = x.map(lambda p: p.to(encoders[0].dtype))
-    conv4 = None
+    features = []
     for idx, blocks in enumerate(zip(*(e.features for e in encoders))):
         if isinstance(blocks[0], InvertedResidual):
             out = run_banded([b.conv for b in blocks], x)
             x = x.zip(out, torch.add) if blocks[0].use_res else out
         else:  # the stem's ConvBN
             x = run_banded(blocks, x)
-        if idx == DOWN_IDX[-1]:
-            conv4 = x
-    return conv4, x
+        if idx in DOWN_IDX:
+            features.append(x)
+    return features + [x]

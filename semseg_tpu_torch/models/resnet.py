@@ -21,8 +21,11 @@ devices (``parallel/spatial.py``), in eval (``cli.eval --spatial``, with
 one copy of the encoder per band's device) and in training (``cli.train
 TPU.spatial``, the one encoder for every band): the same modules'
 parameters, each conv with its halo rows, BN (over the whole map in
-training), ReLU and the residual add per band. It returns conv4 and conv5,
-which the deep-supervision decoders read. Remat has no banded form yet.
+training), ReLU and the residual add per band. It returns the four stage
+maps, as ``forward`` does, at any output stride: the band plan is cut at
+the encoder's coarsest stride (``models.segmentation.band_base``), so the
+strided convs of layers 2-4 keep every band edge exact. Remat has no
+banded form yet.
 
 Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
 ``layer3.0.downsample.0``), so its checkpoints load as they are. The encoder
@@ -169,7 +172,7 @@ class ResNetEncoder(nn.Module):
         return features
 
 
-def _banded_block(blocks: Sequence[ResBlock], x: Bands) -> Bands:
+def banded_block(blocks: Sequence[ResBlock], x: Bands) -> Bands:
     """``ResBlock._forward`` over a banded map (``blocks[j]``: band j's copy)."""
     def each(name):
         return [getattr(b, name) for b in blocks]
@@ -183,11 +186,11 @@ def _banded_block(blocks: Sequence[ResBlock], x: Bands) -> Bands:
 
 
 def banded_features(encoders: Sequence[ResNetEncoder], x: Bands):
-    """(conv4, conv5) of ``ResNetEncoder.forward`` over an image in row
-    bands; ``encoders[j]`` is band j's copy of the encoder, or
-    ``[encoder]`` the one encoder of every band (module docstring).
-    Output stride 8 only (``dilate_scale=8``): a band plan cuts strides
-    1-8."""
+    """The four stage maps of ``ResNetEncoder.forward`` over an image in
+    row bands, as ``Bands``; ``encoders[j]`` is band j's copy of the
+    encoder, or ``[encoder]`` the one encoder of every band (module
+    docstring). The plan must cut strides up to the encoder's output
+    stride."""
     enc = encoders[0]
     x = x.map(lambda p: p.to(enc.dtype))
     for i in (1, 2, 3):
@@ -197,9 +200,9 @@ def banded_features(encoders: Sequence[ResNetEncoder], x: Bands):
     features = []
     for stage in ("layer1", "layer2", "layer3", "layer4"):
         for blocks in zip(*(getattr(e, stage) for e in encoders)):
-            x = _banded_block(blocks, x)
+            x = banded_block(blocks, x)
         features.append(x)
-    return features[2], features[3]
+    return features
 
 
 def resnet18(**kw):

@@ -32,14 +32,15 @@ global loss's.
 ``model(img, seg_label=label, spatial=devices)`` is the training forward
 with each image's height split in row bands over ``devices``
 (``cli.train TPU.spatial``, the JAX package's hybrid data x spatial mesh):
-``parallel.spatial.BandPlan`` cuts the canvas, the image's and the
-labels' rows go to their bands' devices, the banded encoder and decoder
-run with this one model's parameters (``banded_features``,
+``parallel.spatial.BandPlan`` cuts the canvas at the encoder's coarsest
+stride (``band_base``), the image's rows and the labels' rows (at the
+logits' stride) go to their bands' devices, the banded encoder and
+decoder run with this one model's parameters (``banded_features``,
 ``decoders.banded_train_logits``), and each band's loss and accuracy sums
 against its label rows are added on the first band's device before the
-group's all-reduce, so the loss is the unsplit forward's. The families of
-``check_banded`` train banded; remat has no banded form yet (ROADMAP item
-17e).
+group's all-reduce, so the loss is the unsplit forward's. Every encoder
+and decoder of ``ModelBuilder`` trains banded; remat has no banded form
+yet (ROADMAP item 17e).
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ from semseg_tpu_torch.ops.losses import (
 )
 from semseg_tpu_torch.ops.norm import all_reduce_sum, ordered_collectives
 from semseg_tpu_torch.parallel.spatial import BandPlan, split_labels, split_rows
-from . import decoders, mobilenet, resnet
+from . import decoders, hrnet, mobilenet, resnet
 from .layers import BatchNorm2d, Dropout2d
 
 
@@ -75,40 +76,50 @@ def feature_extents(valid_hw, img_hw, feats):
     return [map_extents(valid_hw, img_hw, f.shape[2:]) for f in feats]
 
 
+_BANDED_ENCODERS = {resnet.ResNetEncoder: resnet, mobilenet.MobileNetV2Encoder: mobilenet,
+                    hrnet.HRNetV2: hrnet}
+
+
 def check_banded(model: "SegmentationModel") -> None:
     """Raises ``NotImplementedError`` unless ``model`` has banded forwards
-    (``banded_logits`` and the ``spatial`` training forward): a dilated
-    ResNet/ResNeXt or MobileNetV2 encoder (output stride 8) with a C1 or
-    PPM decoder (or their deep-supervision forms)."""
+    (``banded_logits`` and the ``spatial`` training forward): an encoder
+    and a decoder of ``ModelBuilder`` (ResNet/ResNeXt of any output
+    stride, MobileNetV2, HRNetV2; C1, PPM, UPerNet and their forms)."""
     enc, dec = model.encoder, model.decoder
-    name = type(enc).__name__
-    ok_enc = isinstance(enc, (resnet.ResNetEncoder, mobilenet.MobileNetV2Encoder))
-    if ok_enc and enc.dilate_scale != 8:
-        ok_enc, name = False, f"{name} of output stride {enc.dilate_scale or 32}"
-    if not ok_enc or not isinstance(dec, (decoders.C1, decoders.PPM)):
-        raise NotImplementedError(
-            f"{name} + {type(dec).__name__} does not run split by height yet (ROADMAP "
-            "item 17c): HRNetV2 and UPerNet need banded cross-resolution resizes; the "
-            "dilated ResNet/ResNeXt and MobileNetV2 encoders (output stride 8) with C1 or "
-            "PPM decoders run")
+    if type(enc) not in _BANDED_ENCODERS or not isinstance(
+            dec, (decoders.C1, decoders.PPM, decoders.UPerNet)):
+        raise NotImplementedError(f"{type(enc).__name__} + {type(dec).__name__} has no "
+                                  "banded form (not a pair ModelBuilder builds)")
+
+
+def band_base(model: "SegmentationModel") -> int:
+    """The coarsest stride of ``model``'s encoder, at which a band plan is
+    cut (``parallel.spatial.BandPlan``'s ``base``): the output stride of a
+    ResNet/ResNeXt or MobileNetV2 (8 when dilated, else 32), 32 for
+    HRNetV2 (its fourth branch)."""
+    enc = model.encoder
+    if isinstance(enc, hrnet.HRNetV2):
+        return 32
+    return enc.dilate_scale or 32
 
 
 def _banded_features(encoders, x):
-    family = resnet if isinstance(encoders[0], resnet.ResNetEncoder) else mobilenet
-    return family.banded_features(encoders, x)
+    return _BANDED_ENCODERS[type(encoders[0])].banded_features(encoders, x)
 
 
 def banded_logits(models, x, valid_hw, img_hw):
     """f32 logits at decoder resolution of ``model(img, valid_hw=...)``
     (eval) over an image split in row bands (``parallel.spatial.Bands`` of
-    the normalised NCHW image): ``models[j]`` is band j's copy of the model
-    and ``valid_hw[j]`` the (N, 2) int32 extents on its device; ``img_hw``
-    the padded image's (H, W). Returns the logits as ``Bands``."""
+    the normalised NCHW image, cut at ``band_base``): ``models[j]`` is band
+    j's copy of the model and ``valid_hw[j]`` the (N, 2) int32 extents on
+    its device; ``img_hw`` the padded image's (H, W). Returns the logits as
+    ``Bands``."""
     check_banded(models[0])
-    _, conv5 = _banded_features([m.encoder for m in models], x)
-    map_hw = (conv5.height, conv5.parts[0].shape[3])
+    feats = _banded_features([m.encoder for m in models], x)
+    conv5 = feats[-1]
+    map_hw = (conv5.height, conv5.width)
     valid = [map_extents(v, img_hw, map_hw) for v in valid_hw]
-    return decoders.banded_logits([m.decoder for m in models], conv5, valid)
+    return decoders.banded_logits([m.decoder for m in models], feats, valid)
 
 
 class SegmentationModel(nn.Module):
@@ -162,12 +173,12 @@ class SegmentationModel(nn.Module):
         if any(getattr(m, "remat", False) for m in self.encoder.modules()):
             raise NotImplementedError("TPU.remat has no banded form yet (ROADMAP item 17e); "
                                       "train with TPU.spatial 1 or without remat")
-        plan = BandPlan(img.shape[2], len(spatial))
+        plan = BandPlan(img.shape[2], len(spatial), band_base(self))
         devices = list(spatial)[:plan.count]
         with ordered_collectives():  # BN's all-reduces, over bands on several cards
-            conv4, conv5 = _banded_features([self.encoder], split_rows(img, plan, devices))
-            logits, deepsup = decoders.banded_train_logits(self.decoder, conv4, conv5)
-        labels = split_labels(seg_label, plan, devices)
+            feats = _banded_features([self.encoder], split_rows(img, plan, devices))
+            logits, deepsup = decoders.banded_train_logits(self.decoder, feats)
+        labels = split_labels(seg_label, plan, devices, logits.stride)
         terms = [(logits, 1.0)]
         if deepsup is not None and self.deep_sup_scale is not None:
             terms.append((deepsup, self.deep_sup_scale))

@@ -7,13 +7,16 @@ JAX puts each bucketed level on a mesh with its height sharded
 the halo exchanges. Here one process drives the devices, as JAX's single
 controller does, and the exchanges are written out:
 
-* ``BandPlan``: the rows each band holds at every stride. The stride-8 rows
-  ``ceil(Hp / 8)`` of the padded canvas are cut into N contiguous,
-  near-equal bands; at stride ``2^k`` a band holds rows ``[a * 8 / 2^k, b *
-  8 / 2^k)``, and the last band ends at that level's height ``ceil(Hp /
-  2^k)``. So every interior boundary stays exact through the stride-2 stem
-  conv, the max pool and the stride-2 convs of ``layer2`` or MobileNetV2.
-  When N exceeds ``ceil(Hp / 8)`` the last bands are empty and skipped.
+* ``BandPlan``: the rows each band holds at every stride. The rows ``ceil(Hp
+  / base)`` of the padded canvas at the model's coarsest stride ``base``
+  (``models.segmentation.band_base``: 8 for the dilated encoders, 32 for
+  the non-dilated ResNets and HRNetV2) are cut into N contiguous,
+  near-equal bands; at stride ``2^k`` a band holds rows ``[a * base / 2^k,
+  b * base / 2^k)``, and the last band ends at that level's height ``ceil(Hp
+  / 2^k)``. So every interior boundary stays exact through each stride-2
+  op (a k3/s2/p1 or k1/s2/p0 conv, the max pool), whose output height is
+  ``ceil`` of half its input's. When N exceeds ``ceil(Hp / base)`` the last
+  bands are empty and skipped.
 * ``halo_rows``: rows ``[lo, hi)`` of a banded map on one device. For an op
   with kernel k, stride s, padding p and dilation d, output rows ``[o0,
   o1)`` need input rows ``[o0 * s - p, (o1 - 1) * s - p + d * (k - 1)]``.
@@ -21,6 +24,11 @@ controller does, and the exchanges are written out:
   the max pool), and the op runs with padding ``(0, p_w)``; rows another
   band holds are copied from it, from as many bands as the rows span (a
   dilation-4 conv over bands of one row reads four of them).
+* ``band_resize``: the bilinear resize of a banded map onto the plan's rows
+  at a finer stride (HRNetV2's fusion, UPerNet's FPN): each band reads the
+  window of input rows its output rows interpolate, through ``halo_rows``
+  clamped to the map, and ``ops.resize.resize_bilinear_rows`` computes its
+  rows from that window.
 * ``band_conv``, ``band_max_pool``, ``band_apply`` (a module that acts on
   each pixel alone in eval: batch norm, dropout, an activation; in
   training through its ``forward_bands``, whose batch norm takes the
@@ -28,7 +36,7 @@ controller does, and the exchanges are written out:
   and ``run_banded`` (a ``Sequential`` of those) are the model's ops on a
   ``Bands``; the banded encoders and decoders are in ``models/`` beside
   the modules whose parameters they use. ``split_labels`` cuts a training
-  batch's stride-8 labels into the plan's rows.
+  batch's labels, at the logits' stride, into the plan's rows.
 
 An op takes its modules as a list: in eval one copy per band (``mods[j]``
 on band j's device), in training the one model's module, on the first
@@ -52,25 +60,26 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-#: The coarsest stride a band plan cuts at: the output stride of the
-#: encoders that run banded.
-BASE_STRIDE = 8
+from semseg_tpu_torch.ops.resize import resize_bilinear_rows
 
 
 class BandPlan:
-    """Rows of each non-empty band at strides 1, 2, 4 and 8 of an
-    ``height``-row canvas cut into ``n`` bands."""
+    """Rows of each non-empty band at every stride 1, 2, 4, ..., ``base``
+    of an ``height``-row canvas cut into ``n`` bands at stride ``base``."""
 
-    def __init__(self, height: int, n: int):
+    def __init__(self, height: int, n: int, base: int = 8):
         if height < 1 or n < 1:
             raise ValueError(f"BandPlan: a {height}-row canvas in {n} bands")
+        if base < 1 or base & (base - 1):
+            raise ValueError(f"BandPlan: base stride {base}, not a power of two")
         self.canvas_height = height
-        rows = -(-height // BASE_STRIDE)
+        self.base = base
+        rows = -(-height // base)
         base, extra = divmod(rows, n)
         bounds = [0]
         for i in range(n):
             bounds.append(bounds[-1] + base + (i < extra))
-        #: Stride-8 rows [a, b) of each non-empty band, in order.
+        #: Rows [a, b) at stride ``base`` of each non-empty band, in order.
         self.spans: List[Tuple[int, int]] = [(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
 
     @property
@@ -83,12 +92,13 @@ class BandPlan:
         return -(-self.canvas_height // stride)
 
     def rows(self, stride: int) -> List[Tuple[int, int]]:
-        """Rows [r0, r1) of each non-empty band at ``stride`` (1, 2, 4, 8)."""
-        if stride not in (1, 2, 4, 8):
+        """Rows [r0, r1) of each non-empty band at ``stride``, a power of two
+        up to the plan's base."""
+        if stride < 1 or stride > self.base or stride & (stride - 1):
             raise NotImplementedError(
-                f"a band plan cuts strides 1-{BASE_STRIDE}, not {stride}: the banded "
-                "encoders have output stride 8 (ROADMAP item 17c)")
-        k = BASE_STRIDE // stride
+                f"a band plan of base {self.base} cuts strides 1-{self.base} (powers of "
+                f"two), not {stride}: cut the plan at the model's coarsest stride")
+        k = self.base // stride
         last = self.count - 1
         return [(a * k, self.height(stride) if j == last else b * k)
                 for j, (a, b) in enumerate(self.spans)]
@@ -111,6 +121,10 @@ class Bands:
     def height(self) -> int:
         return self.plan.height(self.stride)
 
+    @property
+    def width(self) -> int:
+        return self.parts[0].shape[3]
+
     def map(self, fn) -> "Bands":
         """``fn`` applied to each band (a pixel-wise op)."""
         return Bands([fn(p) for p in self.parts], self.plan, self.stride)
@@ -130,14 +144,15 @@ def split_rows(x: torch.Tensor, plan: BandPlan, devices: Sequence, stride: int =
                   for (r0, r1), d in zip(plan.rows(stride), devices)], plan, stride)
 
 
-def split_labels(label: torch.Tensor, plan: BandPlan, devices: Sequence) -> List[torch.Tensor]:
-    """A training batch's (N, h, w) labels at stride 8 cut into ``plan``'s
-    stride-8 rows, band j's sent to ``devices[j]``."""
-    if label.shape[1] != plan.height(BASE_STRIDE):
+def split_labels(label: torch.Tensor, plan: BandPlan, devices: Sequence,
+                 stride: int) -> List[torch.Tensor]:
+    """A training batch's (N, h, w) labels at ``stride`` (the logits') cut
+    into ``plan``'s rows at that stride, band j's sent to ``devices[j]``."""
+    if label.shape[1] != plan.height(stride):
         raise ValueError(f"labels of {label.shape[1]} rows for a {plan.canvas_height}-row "
-                         f"canvas at stride {BASE_STRIDE} ({plan.height(BASE_STRIDE)} rows)")
+                         f"canvas at stride {stride} ({plan.height(stride)} rows)")
     return [label[:, r0:r1].to(d, non_blocking=True)
-            for (r0, r1), d in zip(plan.rows(BASE_STRIDE), devices)]
+            for (r0, r1), d in zip(plan.rows(stride), devices)]
 
 
 def gather(x: Bands, device) -> torch.Tensor:
@@ -171,6 +186,47 @@ def halo_rows(x: Bands, lo: int, hi: int, device, fill: float = 0.0) -> torch.Te
 def _window(o0: int, o1: int, k: int, s: int, p: int, d: int) -> Tuple[int, int]:
     """Input rows [lo, hi) that output rows [o0, o1) of a (k, s, p, d) op read."""
     return o0 * s - p, (o1 - 1) * s - p + d * (k - 1) + 1
+
+
+def _resize_window(o0: int, o1: int, in_h: int, out_h: int) -> Tuple[int, int]:
+    """Input rows [lo, hi) that output rows [o0, o1) of a bilinear resize
+    from ``in_h`` to ``out_h`` rows read (half-pixel centres: row o reads
+    ``floor(src)`` and the row after, ``src = (o + 0.5) * in_h / out_h -
+    0.5`` clamped at 0), with one row of slack at each end against the
+    rounding of ``src`` near an integer, clamped to the map."""
+    scale = in_h / out_h
+
+    def src(o):
+        return max((o + 0.5) * scale - 0.5, 0.0)
+
+    return max(int(src(o0)) - 1, 0), min(int(src(o1 - 1)) + 3, in_h)
+
+
+def band_resize(x: Bands, out_stride: int, width: int) -> Bands:
+    """``ops.resize.resize_bilinear`` of the banded map ``x`` to the plan's
+    height at the finer ``out_stride`` and ``width`` columns, cut as the
+    plan cuts that stride: each band resizes the window of input rows its
+    output rows read (``halo_rows``, from as many bands as it spans) with
+    ``resize_bilinear_rows``. ``x`` itself where the strides are equal,
+    as ``resize_bilinear`` returns a map of the target size."""
+    if out_stride == x.stride:
+        return x
+    in_h, out_h = x.height, x.plan.height(out_stride)
+    parts = []
+    for (o0, o1), part in zip(x.plan.rows(out_stride), x.parts):
+        lo, hi = _resize_window(o0, o1, in_h, out_h)
+        parts.append(resize_bilinear_rows(halo_rows(x, lo, hi, part.device), (out_h, width),
+                                          (o0, o1), row0=lo, in_h=in_h))
+    return Bands(parts, x.plan, out_stride)
+
+
+def cat_bands(maps: Sequence[Bands]) -> Bands:
+    """Maps cut alike (at one stride), concatenated per band over channels."""
+    strides = {m.stride for m in maps}
+    if len(strides) != 1:
+        raise ValueError(f"cat_bands: bands at strides {sorted(strides)}")
+    return Bands([torch.cat(ps, dim=1) for ps in zip(*(m.parts for m in maps))], maps[0].plan,
+                  maps[0].stride)
 
 
 def _on(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -245,4 +301,4 @@ def run_banded(mods: Sequence[nn.Module], x: Bands) -> Bands:
         return band_conv(mods, x)
     if getattr(m, "ROWWISE", False):
         return band_apply(mods, x)
-    raise NotImplementedError(f"no banded form of {type(m).__name__} (ROADMAP item 17c)")
+    raise NotImplementedError(f"no banded form of {type(m).__name__}")

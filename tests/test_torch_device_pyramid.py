@@ -26,21 +26,21 @@ import jax.numpy as jnp
 
 from semseg_tpu.engine import DevicePyramidEngine as JaxDevicePyramidEngine
 from semseg_tpu.engine import _pil_resize_matrix as jax_pil_resize_matrix
-from semseg_tpu.models import decoders as jax_decoders, init_variables, resnet as jax_resnet
+from semseg_tpu.models import decoders as jax_decoders, resnet as jax_resnet
 from semseg_tpu.models.segmentation import SegmentationModel as JaxSegmentationModel
 
-import jax
 
 from semseg_tpu_torch.config import cfg
 from semseg_tpu_torch.data.dataset import BaseDataset, _effective_lattice
 from semseg_tpu_torch.engine import BatchedInferenceEngine, DevicePyramidEngine
 from semseg_tpu_torch.models import SegmentationModel
+from semseg_tpu_torch.models.builder import _init
 from semseg_tpu_torch.models.convert import state_dicts_from_jax
 from semseg_tpu_torch.models.decoders import PPMDeepsup
 from semseg_tpu_torch.models.resnet import ResNetEncoder
 from semseg_tpu_torch.ops.resize_dynamic import pil_resize_matrix
 
-from test_torch_model import _perturb_stats
+from test_torch_model import _perturb_stats, port_weights_for_jax
 
 C = 150
 NARROW = dict(layers=(1, 1, 1, 1), planes=(8, 16, 32, 64))
@@ -186,7 +186,13 @@ def narrow():
         encoder=jax_resnet.ResNetEncoder(block="basic", dilate_scale=8, **NARROW),
         decoder=jax_decoders.PPMDeepsup(num_class=C, fc_dim=64), deep_sup_scale=0.4,
     )
-    variables = jax.tree.map(np.asarray, init_variables(model, seed=0, image_size=(64, 64)))
+    seeded = SegmentationModel(ResNetEncoder(block="basic", dilate_scale=8, **NARROW),
+                               PPMDeepsup(num_class=C, fc_dim=64))
+    generator = torch.Generator().manual_seed(0)
+    _init(seeded.encoder, generator, mode="fan_out", bn_bias=0.0)
+    _init(seeded.decoder, generator, mode="fan_in", bn_bias=1e-4)
+    # The port's seeded weights on JAX's variables: no JAX init runs.
+    variables = port_weights_for_jax(model, seeded, "resnet18dilated", "ppm_deepsup")
     variables = {"params": variables["params"],
                  "batch_stats": _perturb_stats(variables["batch_stats"],
                                                np.random.RandomState(0))}

@@ -1,8 +1,9 @@
 """The port's model against the JAX package's model on the CPU.
 
-The JAX model is initialised with seeded random weights and its variables go
-through the port's converter (``state_dicts_from_jax``); the same seeded
-numpy image goes through both. A narrow model (one block per stage, planes
+Seeded random weights (the narrow model's: the port's init carried onto
+JAX's variables by the JAX package's converter, ``narrow_jax_model``; the
+full-width model's: JAX's init) go through the port's converter
+(``state_dicts_from_jax``); the same seeded numpy image goes through both. A narrow model (one block per stage, planes
 8/16/32/64, fc_dim 256) in float32 is held to atol 1e-4 on probabilities. The
 full-width resnet50dilated + ppm_deepsup at 64x64 uses the tolerance of the
 JAX package's own full-width parity tests (atol 2e-2 on probabilities,
@@ -23,10 +24,12 @@ import jax.numpy as jnp
 from semseg_tpu.config import cfg
 from semseg_tpu.models import ModelBuilder as JaxModelBuilder, init_variables
 from semseg_tpu.models import decoders as jax_decoders, resnet as jax_resnet
+from semseg_tpu.models.convert import convert_checkpoints
 from semseg_tpu.models.export import export_state_dicts
 from semseg_tpu.models.segmentation import SegmentationModel as JaxSegmentationModel
 
 from semseg_tpu_torch.models import ModelBuilder, SegmentationModel
+from semseg_tpu_torch.models.builder import _init
 from semseg_tpu_torch.models.convert import SYNCBN_ACCUMULATORS, state_dicts_from_jax
 from semseg_tpu_torch.models.decoders import PPMDeepsup
 from semseg_tpu_torch.models.resnet import ResNetEncoder
@@ -50,21 +53,47 @@ def _perturb_stats(tree, rng):
     return out
 
 
-def jax_init(model, seed=0, image_size=(64, 64), jit=False):
-    """``init_variables`` as numpy arrays; with ``jit`` traced and compiled
-    as one program, quicker on the CPU than eager for the narrow model and
-    MobileNetV2 (4.7 s against 22.8 s, 6.9 against 16.3)."""
-    init = functools.partial(init_variables, model, seed=seed, image_size=image_size)
-    return jax.tree.map(np.asarray, (jax.jit(init) if jit else init)())
+def port_weights_for_jax(model, port, arch_encoder, arch_decoder, image_size=(64, 64)):
+    """Variables of the JAX model ``model`` (numpy) holding the weights of
+    the port's model ``port``: the JAX package's converter for the
+    reference's state dicts, whose names the port keeps, over the
+    ``jax.eval_shape`` template of ``init_variables``. No JAX init runs
+    (its eager run took 6-30 s a model on the CPU)."""
+    template = jax.eval_shape(functools.partial(init_variables, model, image_size=image_size))
+
+    def numpy(m):
+        return {k: v.numpy() for k, v in m.state_dict().items()}
+
+    return jax.tree.map(np.asarray, convert_checkpoints(
+        dict(template), arch_encoder=arch_encoder, arch_decoder=arch_decoder,
+        encoder_state=numpy(port.encoder), decoder_state=numpy(port.decoder)))
 
 
-def narrow_jax_model(seed=0, jit=False):
+def jax_forward(model, variables, img, jit=True, **kw):
+    """``model.apply(variables, img, **kw)`` as numpy, under ``jit`` unless
+    told not to: on the CPU 3-5x quicker than eager for the narrow model,
+    the ResNets and MobileNetV2 at 64x64 (2.6 against 23.3 s for the narrow
+    model's logits); HRNetV2 compiles for longer than it runs eagerly (24.4
+    against 13.4 s)."""
+    fn = functools.partial(model.apply, **kw)
+    return np.asarray((jax.jit(fn) if jit else fn)(variables, jnp.asarray(img)))
+
+
+def narrow_jax_model(seed=0):
+    """The narrow JAX model and its variables: the port's narrow model with
+    the builder's seeded init, carried over by ``port_weights_for_jax``,
+    its running statistics perturbed so that BN is not the identity."""
     model = JaxSegmentationModel(
         encoder=jax_resnet.ResNetEncoder(block="bottleneck", dilate_scale=8, **NARROW),
         decoder=jax_decoders.PPMDeepsup(num_class=150, fc_dim=256),
         deep_sup_scale=0.4,
     )
-    variables = jax_init(model, seed, jit=jit)
+    port = SegmentationModel(ResNetEncoder(dilate_scale=8, **NARROW),
+                             PPMDeepsup(num_class=150, fc_dim=256))
+    generator = torch.Generator().manual_seed(seed)
+    _init(port.encoder, generator, mode="fan_out", bn_bias=0.0)
+    _init(port.decoder, generator, mode="fan_in", bn_bias=1e-4)
+    variables = port_weights_for_jax(model, port, **ARCH)
     rng = np.random.RandomState(seed)
     variables = {"params": variables["params"],
                  "batch_stats": _perturb_stats(variables["batch_stats"], rng)}
@@ -113,7 +142,7 @@ def test_port_keys_are_the_reference_keys():
 def test_narrow_model_matches_jax(hw):
     model, variables = narrow_jax_model()
     img = np.random.RandomState(1).randn(1, *hw, 3).astype(np.float32)
-    ref = np.asarray(model.apply(variables, jnp.asarray(img), seg_size=hw, train=False))
+    ref = jax_forward(model, variables, img, seg_size=hw, train=False)
     out = _run_port(narrow_port_model(variables), img, hw)
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
 
@@ -130,8 +159,8 @@ def test_narrow_logits_match_jax(extents):
     if vhw is not None:
         for n, (h, w) in enumerate(vhw):  # zero padding, as the engines feed it
             img[n, h:], img[n, :, w:] = 0.0, 0.0
-    ref = np.asarray(model.apply(variables, jnp.asarray(img), seg_size=None, train=False,
-                                 valid_hw=None if vhw is None else jnp.asarray(vhw)))
+    ref = jax_forward(model, variables, img, seg_size=None, train=False,
+                      valid_hw=None if vhw is None else jnp.asarray(vhw))
     port = narrow_port_model(variables)
     with torch.no_grad():
         out = port(torch.from_numpy(img).permute(0, 3, 1, 2),
@@ -167,8 +196,9 @@ def test_dilation_spec_matches_jax():
 def test_full_width_matches_jax():
     c = cfg.clone()
     jax_model = JaxModelBuilder.build_model(c, dtype=jnp.float32)
-    variables = jax_model.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 64, 64, 3)),
-                               seg_size=(64, 64), train=False)
+    variables = jax.jit(lambda: jax_model.init(  # jit: quicker than eager on the CPU
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 64, 64, 3)), seg_size=(64, 64),
+        train=False))()
     img = np.random.RandomState(42).randn(1, 64, 64, 3).astype(np.float32)
     ref = np.asarray(jax.jit(
         lambda v, x: jax_model.apply(v, x, seg_size=(64, 64), train=False)

@@ -3,6 +3,11 @@ the CPU, each against its whole-map op, in float32.
 
 * ``BandPlan``: near-equal contiguous bands of the stride-8 rows, the
   empty ones last and skipped, each stride's rows covering its level.
+* ``band_resize`` (a banded map resized onto a finer stride's rows) against
+  the whole map's ``resize_bilinear``, at 2x, 4x and 8x, in float32 (atol
+  1e-5) and float64 (and its gradient, 1e-12), over plans whose bands are
+  one row thick at the coarse stride and over canvases that are not a
+  multiple of 32;
 * each banded conv and the max pool against the op on the whole map, for
   (k, s, p, d) in {(3,1,1,1), (3,2,1,1), (3,1,2,2), (3,1,4,4), (1,2,0,1)}
   and grouped and depthwise convs, over splits whose bands are a row thick
@@ -29,11 +34,13 @@ from semseg_tpu.ops.resize_dynamic import adaptive_avg_pool2d_valid
 from semseg_tpu_torch.models.layers import Conv2d
 from semseg_tpu_torch.ops.kernels import ppm_pool
 from semseg_tpu_torch.ops.pool import max_pool2d
+from semseg_tpu_torch.ops.resize import resize_bilinear
 from semseg_tpu_torch.ops.resize_dynamic import upsample_grid_valid
 from semseg_tpu_torch.parallel.spatial import (
     BandPlan,
     band_conv,
     band_max_pool,
+    band_resize,
     gather,
     run_banded,
     split_rows,
@@ -43,19 +50,55 @@ from semseg_tpu_torch.parallel.spatial import (
 @pytest.mark.parametrize("n", [2, 3, 4, 8])
 @pytest.mark.parametrize("hp", [40, 48, 64, 96, 600])
 def test_band_plan(hp, n):
-    plan = BandPlan(hp, n)
-    rows8 = -(-hp // 8)
-    sizes = [b - a for a, b in plan.spans]
-    assert plan.count == min(n, rows8) and min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
-    assert sizes == sorted(sizes, reverse=True)  # the longer bands first
-    for stride in (1, 2, 4, 8):
-        rows = plan.rows(stride)
-        assert rows[0][0] == 0 and rows[-1][1] == plan.height(stride) == -(-hp // stride)
-        assert all(r1 == q0 for (_, r1), (q0, _) in zip(rows, rows[1:]))  # contiguous
-        k = 8 // stride
-        assert [r0 for r0, _ in rows] == [a * k for a, _ in plan.spans]
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        plan.rows(16)
+    """The default base-8 plan (the dilated encoders') and a base-32 plan
+    (the non-dilated ResNets' and HRNetV2's), which serves strides 16 and
+    32 too; a stride beyond the base, or not a power of two, is refused."""
+    assert BandPlan(hp, n).spans == BandPlan(hp, n, base=8).spans
+    for base in (8, 32):
+        plan = BandPlan(hp, n, base=base)
+        rows_base = -(-hp // base)
+        sizes = [b - a for a, b in plan.spans]
+        assert plan.count == min(n, rows_base) and min(sizes) >= 1
+        assert max(sizes) - min(sizes) <= 1
+        assert sizes == sorted(sizes, reverse=True)  # the longer bands first
+        strides = [2 ** k for k in range(base.bit_length())]
+        for stride in strides:
+            rows = plan.rows(stride)
+            assert rows[0][0] == 0 and rows[-1][1] == plan.height(stride) == -(-hp // stride)
+            assert all(r1 == q0 for (_, r1), (q0, _) in zip(rows, rows[1:]))  # contiguous
+            assert all(r1 > r0 for r0, r1 in rows)
+            k = base // stride
+            assert [r0 for r0, _ in rows] == [a * k for a, _ in plan.spans]
+        for bad in (2 * base, 3):
+            with pytest.raises(NotImplementedError, match=f"base {base}"):
+                plan.rows(bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("factor", [2, 4, 8])
+@pytest.mark.parametrize("hp,n", [(128, 4), (600, 3), (100, 4), (64, 2)])
+def test_band_resize_matches_whole_map(hp, n, factor, dtype):
+    plan = BandPlan(hp, n, base=32)
+    src, dst = 32, 32 // factor
+    rng = np.random.RandomState(hp + n + factor)
+    x = torch.tensor(rng.randn(2, 5, plan.height(src), 7), dtype=dtype,
+                     requires_grad=True)
+    width = -(-7 * factor // 1) - 3  # not an exact multiple, as a canvas's may be
+    whole = resize_bilinear(x, (plan.height(dst), width))
+    bands = band_resize(split_rows(x, plan, ["cpu"] * n, src), dst, width)
+    assert bands.stride == dst and [p.shape[2] for p in bands.parts] == [
+        r1 - r0 for r0, r1 in plan.rows(dst)]
+    out = gather(bands, "cpu")
+    # In float32 a weight carries the rounding of its source row's
+    # coordinate, up to ~2e-6 for a 19-row map, times the rows' difference.
+    tol = dict(atol=1e-12, rtol=0) if dtype == torch.float64 else dict(atol=1e-5, rtol=0)
+    torch.testing.assert_close(out, whole, **tol)
+    assert band_resize(bands, dst, width) is bands  # same stride: the map itself
+    if dtype == torch.float64:
+        g = torch.tensor(rng.randn(*whole.shape), dtype=dtype)
+        (grad,) = torch.autograd.grad(out, x, g)
+        (ref,) = torch.autograd.grad(whole, x, g)
+        torch.testing.assert_close(grad, ref, **tol)
 
 
 def _map(shape, seed):

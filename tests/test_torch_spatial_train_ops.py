@@ -24,7 +24,8 @@ each against the unsplit op, in float64 where frameworks meet.
   unsplit call's;
 * ``resize_bilinear_rows``, a band's rows of a pyramid grid's bilinear
   upsample, against the whole map's rows, value and gradient;
-* ``split_labels``: the stride-8 rows of each band;
+* ``split_labels``: the stride-8 rows of each band, and the stride-4 rows of
+  a plan cut at stride 32;
 * ``ordered_collectives``: each differentiable all-reduce made inside
   takes the previous one as an input, so the backward runs them in the
   reverse of the forward's order (autograd runs each card's part of the
@@ -269,11 +270,17 @@ def test_dropout_draws_one_mask_for_every_band():
 def test_split_labels():
     plan = BandPlan(40, 2)
     label = torch.arange(2 * 5 * 3, dtype=torch.int32).view(2, 5, 3)
-    parts = split_labels(label, plan, ["cpu", "cpu"])
+    parts = split_labels(label, plan, ["cpu", "cpu"], 8)
     assert [p.shape[1] for p in parts] == [3, 2]
     assert torch.equal(torch.cat(parts, dim=1), label)
     with pytest.raises(ValueError, match="labels of 4 rows"):
-        split_labels(label[:, :4], plan, ["cpu", "cpu"])
+        split_labels(label[:, :4], plan, ["cpu", "cpu"], 8)
+    # Stride-4 labels (HRNetV2's and UPerNet's) on a plan cut at stride 32.
+    plan = BandPlan(100, 3, base=32)
+    label = torch.arange(2 * 25 * 3, dtype=torch.int32).view(2, 25, 3)
+    parts = split_labels(label, plan, ["cpu"] * 3, 4)
+    assert [p.shape[1] for p in parts] == [16, 8, 1]
+    assert torch.equal(torch.cat(parts, dim=1), label)
 
 
 def test_ordered_collectives_chain_the_all_reduces(monkeypatch):

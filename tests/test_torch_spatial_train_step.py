@@ -19,10 +19,7 @@ CPU, in float64.
   ``test_torch_dist_train_step.py``'s batches, limits (loss rtol 1e-8,
   parameters and statistics atol 1e-6), float64 weights and bit-equal ranks:
   that test's check, with its ranks' train state split
-  (``test_torch_spatial_ranks``) and JAX's mesh the hybrid one. The weights
-  are the port's seeded init carried onto JAX's variables by the JAX
-  package's converter (``port_reference_weights``), which saves compiling
-  JAX's init.
+  (``test_torch_spatial_ranks``) and JAX's mesh the hybrid one.
 * mobilenetv2dilated + c1_deepsup split in 2 against its unsplit step, as
   the first case (no JAX).
 """
@@ -30,22 +27,18 @@ CPU, in float64.
 import copy
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from semseg_tpu.models import ModelBuilder as JaxModelBuilder
-from semseg_tpu.models.convert import convert_checkpoints
 from semseg_tpu.parallel import make_mesh_2d
 
 import test_torch_dist_train_step as dist_step
 from semseg_tpu_torch.config import cfg as default_cfg
 from semseg_tpu_torch.models import ModelBuilder
-from semseg_tpu_torch.models.convert import state_dicts_from_jax
 from semseg_tpu_torch.parallel import create_train_state, dropout_generator, train_step
 from test_torch_spatial_ranks import spatial_train_rank
-from test_torch_train_step import make_batch, small_cfgs
+from test_torch_train_step import make_batch
 
 LOSS_RTOL = 1e-10
 STATE_ATOL = 1e-9
@@ -118,35 +111,7 @@ def x64():
         yield
 
 
-def port_reference_weights():
-    """``dist_step.reference_weights``'s pair (JAX's float64 variables, the
-    port's state dicts) from the port's seeded small model: its state dicts
-    go onto the template of JAX's variables (``jax.eval_shape`` of the
-    init) through the JAX package's converter for the reference's state
-    dicts, whose names the port keeps. ~2 s on the CPU, against ~13 s for
-    JAX's compiled init."""
-    jc, tc = small_cfgs()
-    model = ModelBuilder.build_model(tc, device="cpu", seed=0)
-    jmodel = JaxModelBuilder.build_model(jc, dtype=jnp.float64)
-    keys = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}
-    template = jax.eval_shape(lambda: jmodel.init(
-        keys, jnp.zeros((1, 64, 64, 3), jnp.float32), seg_label=jnp.zeros((1, 8, 8), jnp.int32),
-        train=True))
-
-    def numpy64(m):
-        return {k: v.double().numpy() for k, v in m.state_dict().items()}
-
-    variables = convert_checkpoints(dict(template), arch_encoder=tc.MODEL.arch_encoder,
-                                    arch_decoder=tc.MODEL.arch_decoder,
-                                    encoder_state=numpy64(model.encoder),
-                                    decoder_state=numpy64(model.decoder))
-    variables = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
-    return variables, state_dicts_from_jax(variables, tc.MODEL.arch_encoder,
-                                           tc.MODEL.arch_decoder)
-
-
 def test_two_ranks_of_two_bands_match_jax_hybrid_mesh(x64, monkeypatch, tmp_path):
-    monkeypatch.setattr(dist_step, "reference_weights", port_reference_weights)
     monkeypatch.setattr(dist_step, "train_rank", spatial_train_rank)
     monkeypatch.setattr(dist_step, "make_mesh", lambda n: make_mesh_2d(n, 2))
     ranks = dist_step.check_two_ranks_against_jax(monkeypatch, str(tmp_path), grad_accum=1,

@@ -1,10 +1,11 @@
 """The port's train step against the JAX package's, on the CPU.
 
 The small config of ``tests/test_train_step.py`` (resnet18dilated +
-ppm_deepsup, fc_dim 512), batch 2, 64x64: the JAX model is initialised with
-its seeded random weights, which cross into the port through
-``state_dicts_from_jax``; the same seeded numpy batches go through two
-steps of both ``train_step``s. Dropout draws differ between the frameworks,
+ppm_deepsup, fc_dim 512), batch 2, 64x64: seeded random weights (the
+port's init carried onto JAX's variables by the JAX package's converter,
+``jax_variables``) cross into the port through ``state_dicts_from_jax``;
+the same seeded numpy batches go through two steps of both
+``train_step``s. Dropout draws differ between the frameworks,
 so its rate is 0 on both sides (the JAX decoders' ``Dropout2d`` is patched
 inside the test; c1_deepsup has no dropout and runs unpatched).
 Compared: loss and accuracy at each step, every parameter and every BN
@@ -38,6 +39,7 @@ from flax import linen as fnn
 
 from semseg_tpu.config import cfg as jax_cfg
 from semseg_tpu.models import ModelBuilder as JaxModelBuilder, decoders as jax_decoders
+from semseg_tpu.models.convert import convert_checkpoints
 from semseg_tpu.parallel import create_train_state as jax_create_train_state
 from semseg_tpu.parallel import train_step as jax_train_step
 
@@ -96,13 +98,25 @@ def x64():
 
 
 def jax_variables(decoder="ppm_deepsup"):
-    """Seeded variables of the small JAX model: ``init_variables``'s
-    ``model.init`` under ``jit``, ~4x faster than eager on the CPU."""
-    model = JaxModelBuilder.build_model(small_cfgs(decoder)[0], dtype=jnp.float64)
+    """Seeded variables of the small JAX model: the port's seeded model
+    (``ModelBuilder.build_model(seed=0)``) carried onto the
+    ``jax.eval_shape`` template of JAX's init by the JAX package's
+    converter for the reference's state dicts, whose names the port keeps
+    (~2 s on the CPU, against ~13 s for JAX's init under ``jit``)."""
+    jc, tc = small_cfgs(decoder)
+    model = JaxModelBuilder.build_model(jc, dtype=jnp.float64)
     img = jnp.zeros((1, 64, 64, 3), jnp.float32)
     label = jnp.zeros((1, 8, 8), jnp.int32)
     keys = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}
-    return jax.jit(lambda: model.init(keys, img, seg_label=label, train=True))()
+    template = jax.eval_shape(lambda: model.init(keys, img, seg_label=label, train=True))
+    port = ModelBuilder.build_model(tc, device="cpu", seed=0)
+
+    def numpy(m):
+        return {k: v.numpy() for k, v in m.state_dict().items()}
+
+    return convert_checkpoints(dict(template), arch_encoder=tc.MODEL.arch_encoder,
+                               arch_decoder=decoder, encoder_state=numpy(port.encoder),
+                               decoder_state=numpy(port.decoder))
 
 
 def build_pair(variables, decoder="ppm_deepsup", fix_bn=False):

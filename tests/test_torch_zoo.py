@@ -1,9 +1,13 @@
 """The rest of the model zoo: the port against the JAX package on the CPU.
 
-Per family, the JAX model is initialised with seeded random weights (its
-running statistics perturbed so that BN is not the identity), its variables
-go through the port's ``state_dicts_from_jax`` into the port's modules, and
-the same seeded numpy images go through both at 64 x 64 in float32:
+Per family, the port's model is built with seeded random weights, which go
+onto JAX's variables through the JAX package's converter for the
+reference's state dicts (over the ``jax.eval_shape`` template of JAX's
+init, so no JAX init runs: 2-6 s a family against 6-30 s for JAX's eager
+init on the CPU); the running statistics are perturbed there so that BN is
+not the identity, the variables come back through the port's
+``state_dicts_from_jax`` into the port's modules, and the same seeded
+numpy images go through both at 64 x 64 in float32:
 
 * ``state_dicts_from_jax`` equals ``semseg_tpu.models.export.export_state_dicts``
   minus the SyncBN accumulators, and loads strict into the port's module;
@@ -28,18 +32,18 @@ import jax
 import jax.numpy as jnp
 
 from semseg_tpu.config import cfg
-from semseg_tpu.models import ModelBuilder as JaxModelBuilder, init_variables
+from semseg_tpu.models import ModelBuilder as JaxModelBuilder
 from semseg_tpu.models import decoders as jax_decoders, resnet as jax_resnet
 from semseg_tpu.models.export import export_state_dicts
 from semseg_tpu.models.segmentation import SegmentationModel as JaxSegmentationModel
 
 from semseg_tpu_torch.models import ModelBuilder, SegmentationModel
-from semseg_tpu_torch.models.builder import ENCODER_CHANNELS
+from semseg_tpu_torch.models.builder import ENCODER_CHANNELS, _init
 from semseg_tpu_torch.models.convert import SYNCBN_ACCUMULATORS, state_dicts_from_jax
 from semseg_tpu_torch.models.decoders import C1
 from semseg_tpu_torch.models.resnet import ResNetEncoder
 
-from test_torch_model import _perturb_stats, jax_init
+from test_torch_model import _perturb_stats, jax_forward, port_weights_for_jax
 
 # (encoder, decoder, fc_dim); hrnetv2 + C1 and the UPerNet pair run in
 # test_torch_zoo_hrnet_upernet.py, so that the two files run side by side.
@@ -66,28 +70,33 @@ def _jax_model(encoder, decoder, fc_dim):
 
 
 def _port_model(encoder, decoder, fc_dim):
+    """The port's model with seeded random weights."""
     if encoder == "resnext101_1111":
-        return SegmentationModel(
-            ResNetEncoder(block="group_bottleneck", layers=(1, 1, 1, 1),
-                          planes=(128, 256, 512, 1024), groups=32),
-            C1(num_class=150, fc_dim=fc_dim)).eval().to(memory_format=torch.channels_last)
+        port = SegmentationModel(ResNetEncoder(block="group_bottleneck", layers=(1, 1, 1, 1),
+                                               planes=(128, 256, 512, 1024), groups=32),
+                                 C1(num_class=150, fc_dim=fc_dim))
+        generator = torch.Generator().manual_seed(0)
+        _init(port.encoder, generator, mode="fan_out", bn_bias=0.0)
+        _init(port.decoder, generator, mode="fan_in", bn_bias=1e-4)
+        return port.eval().to(memory_format=torch.channels_last)
     return SegmentationModel(
         ModelBuilder.build_encoder(encoder, fc_dim, device="cpu"),
         ModelBuilder.build_decoder(decoder, fc_dim, encoder_arch=encoder, device="cpu"),
     )
 
 
-def build_family(encoder, decoder, fc_dim, jit=False):
-    """(JAX model, variables, port model, arch keys) of one family; ``jit``:
-    the JAX variables initialised by one compiled program."""
+def build_family(encoder, decoder, fc_dim):
+    """(JAX model, variables, port model, arch keys) of one family (module
+    docstring): the port's seeded weights through JAX's converter onto the
+    template of its variables, statistics perturbed, and back."""
     model = _jax_model(encoder, decoder, fc_dim)
-    variables = jax_init(model, image_size=HW, jit=jit)
+    port = _port_model(encoder, decoder, fc_dim)
+    arch = ("resnet50" if encoder == "resnext101_1111" else encoder, decoder)
+    variables = port_weights_for_jax(model, port, *arch, image_size=HW)
     variables = {"params": variables["params"],
                  "batch_stats": _perturb_stats(variables["batch_stats"],
                                                np.random.RandomState(0))}
-    arch = ("resnet50" if encoder == "resnext101_1111" else encoder, decoder)
     enc_sd, dec_sd = state_dicts_from_jax(variables, *arch)
-    port = _port_model(encoder, decoder, fc_dim)
     port.encoder.load_state_dict(enc_sd, strict=True)
     port.decoder.load_state_dict(dec_sd, strict=True)
     return model, variables, port.eval(), arch
@@ -97,6 +106,10 @@ def _prob_atol(family):
     # UPerNet's random-weight logits reach ~1e3: a relative f32 difference
     # of ~3e-6 there moves a near-one-hot softmax by up to ~3e-4.
     return 1e-3 if family[3][1].startswith("upernet") else 1e-4
+
+
+def _jit(family):
+    return family[3][0] != "hrnetv2"  # see jax_forward
 
 
 def check_converter_matches_export(family):
@@ -113,7 +126,7 @@ def check_converter_matches_export(family):
 def check_seg_size_forward(family):
     model, variables, port, _ = family
     img = np.random.RandomState(1).randn(1, *HW, 3).astype(np.float32)
-    ref = np.asarray(model.apply(variables, jnp.asarray(img), seg_size=HW, train=False))
+    ref = jax_forward(model, variables, img, _jit(family), seg_size=HW, train=False)
     with torch.no_grad():
         out = port(torch.from_numpy(img).permute(0, 3, 1, 2), HW).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(out, ref, atol=_prob_atol(family), rtol=0)
@@ -126,8 +139,8 @@ def check_valid_hw_forward(family):
     vhw = np.array(EXTENTS, np.int32)
     for n, (h, w) in enumerate(vhw):  # zero padding, as the engines feed it
         img[n, h:], img[n, :, w:] = 0.0, 0.0
-    ref = np.asarray(model.apply(variables, jnp.asarray(img), seg_size=None, train=False,
-                                 valid_hw=jnp.asarray(vhw)))
+    ref = jax_forward(model, variables, img, _jit(family), seg_size=None, train=False,
+                      valid_hw=jnp.asarray(vhw))
     with torch.no_grad():
         out = port(torch.from_numpy(img).permute(0, 3, 1, 2), valid_hw=torch.from_numpy(vhw))
     assert out.dtype == torch.float32
