@@ -178,6 +178,20 @@ PyTorch built for CUDA. In order:
    image and ``cli.train ... TPU.spatial 2`` for one epoch of phase 8's
    data, for each config.
 
+15. ``TPU.remat`` under ``TPU.spatial`` (after phase 14): each banded ResNet
+   block one checkpoint over its bands, recomputed in the backward with no
+   collective. (a) the flagship in float32 (TF32 off, deterministic
+   algorithms) at batch 2, 448x608, split in 2 and 4 bands on cuda:0: two
+   steps with remat against two without from the same weights, batches and
+   dropout generators, losses, accuracies, every parameter, gradient and
+   BN buffer bit-equal, each of its 16 blocks recomputed once a step, the
+   band forward and backward launched as without remat; (b) the same for
+   ``ade20k-resnet50-upernet.yaml`` (stride 32) in 2 bands, one step; (c)
+   bf16 ms/step, peak memory and the memory allocated between steps, remat
+   on against off, at batch 2 in 2 and 4 bands and at bench.py's batch 8 in
+   2: remat must lower the peak; (d) ``cli.train --device cuda:0 ...
+   TPU.spatial 2 TPU.remat True`` for one epoch of phase 8's data.
+
 With more than one visible card, a last check puts a rank or an engine on
 every card: the ranks (NCCL) against one process as in 10 (a),
 ``cli.train --devices N`` for one epoch, ``cli.eval --exact --devices
@@ -187,8 +201,13 @@ the cards against one card (float32 within 2e-4) with its single-image
 latency at 1, 2 and 4 cards, the split training step with its bands on
 distinct cards against one card (as 13 (b)) with ms/step at 1, 2 and 4
 cards, ``cli.train TPU.spatial 2`` over the cards (N / 2 data groups),
-and UPerNet's engine split over the cards against one card (as 14 (b)).
-Run with no arguments on one card, it needs one.
+UPerNet's engine split over the cards against one card (as 14 (b)), and
+phase 15's checks over the cards: 15 (a) with the bands on cuda:0-1 and
+cuda:0-3, two NCCL ranks of two cards each (four cards) with remat on
+against off (each rank's state bit-equal, as many all-reduces a step),
+``cli.train --devices N/2 ... TPU.spatial 2 TPU.remat True``, both killed
+after a timeout, and a batch-8 step with the default multithreaded backward
+over the cards, remat against no remat, each gradient within its limit. Run with no arguments on one card, it needs one.
 
 It ends with a JSON line of per-kernel results, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}`` as the last
@@ -2298,6 +2317,7 @@ def multi_card_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt, train_roo
     spatial_multi_card(ckpt, val_dir, odgt, torch, card, n)
     spatial_train_multi_card(work, torch, ppm_pool, card, train_root, train_odgt, n)
     zoo_spatial_multi_card(zoo_ckpts, val_dir, odgt, torch, card, n)
+    spatial_remat_multi_card(work, torch, ppm_pool, card, train_root, train_odgt, n)
     print(f"[multi] the multi-card phase took {time.perf_counter() - start:.1f} s (card: "
           f"{card})", flush=True)
 
@@ -3265,33 +3285,40 @@ def split_timing(torch, ppm_pool, lists, card, tag, path=CFG, steps=1 + SPLIT_TI
     return launches, times
 
 
-def split_train_cli(work, torch, ppm_pool, root, odgt, card):
+def split_train_cli(work, torch, ppm_pool, root, odgt, card, remat=False):
     """(d): ``cli.train --device cuda:0 ... TPU.spatial 2``, one epoch of
-    phase 8's data and settings, writes its checkpoint pair. Returns the
-    band launches."""
+    phase 8's data and settings, writes its checkpoint pair; with ``remat``
+    (phase 15 (d)) ``TPU.remat True`` too, each of the flagship's 16 blocks
+    recomputed once a step. Returns the band launches."""
     import numpy as np
 
     from semseg_tpu_torch.cli import train as train_cli
+    from semseg_tpu_torch.models import resnet
 
-    out = os.path.join(work, "spatial_train")
+    name = "TPU.spatial 2" + (" TPU.remat True" if remat else "")
+    out = os.path.join(work, "spatial_remat_train" if remat else "spatial_train")
     dev0 = "cuda:0" if CARD == "cuda" else CARD
     want = 2 * TRAIN_ITERS
+    before = resnet.RECOMPUTES
     (state, history), wall, dense, valid = _run_path(
-        "cli.train --device cuda:0 TPU.spatial 2", lambda: train_cli.main(
+        f"cli.train --device cuda:0 {name}", lambda: train_cli.main(
             ["--cfg", CFG, "--device", dev0, "--devices", "1", "DIR", out,
-             *_train_cfg_opts(root, odgt), "TRAIN.num_epoch", "1", "TPU.spatial", "2"]),
+             *_train_cfg_opts(root, odgt), "TRAIN.num_epoch", "1", *name.split()]),
         ppm_pool, torch, band=want, band_backward=want)
+    recomputes = resnet.RECOMPUTES - before
     losses = history["train"]["loss"]
     pair = [os.path.join(out, f"{p}_epoch_1.pth") for p in ("encoder", "decoder")]
     if (dense, valid) != (0, 0) or not all(np.isfinite(losses)) or not all(
-            os.path.exists(p) for p in pair) or state.step != TRAIN_ITERS:
-        raise RuntimeError(f"cli.train TPU.spatial 2: launches {dense}/{valid}, losses "
-                           f"{losses}, files {os.listdir(out)}")
-    print(f"[spatial-train] (d) cli.train --device {dev0} TPU.spatial 2: {TRAIN_ITERS} steps "
-          f"at batch 2, bf16, full width, losses at the display steps "
+            os.path.exists(p) for p in pair) or state.step != TRAIN_ITERS \
+            or recomputes != (FLAGSHIP_BLOCKS * TRAIN_ITERS if remat else 0):
+        raise RuntimeError(f"cli.train {name}: launches {dense}/{valid}, losses {losses}, "
+                           f"files {os.listdir(out)}, {recomputes} recomputes")
+    print(f"[spatial-{'remat' if remat else 'train'}] (d) cli.train --device {dev0} {name}: "
+          f"{TRAIN_ITERS} steps at batch 2, bf16, full width, losses at the display steps "
           f"{[round(x, 4) for x in losses]}; {want} band forward and {want} band backward "
-          f"launches, no dense ones; wrote the epoch_1 pair; {wall:.1f} s wall (model build "
-          f"and loader start included; card: {card})", flush=True)
+          f"launches, no dense ones; {recomputes} blocks recomputed; wrote the epoch_1 pair; "
+          f"{wall:.1f} s wall (model build and loader start included; card: {card})",
+          flush=True)
     return want
 
 
@@ -3639,6 +3666,422 @@ def spatial_zoo_phase(work, torch, ppm_pool, card, zoo_ckpts, val_dir, odgt, roo
     return band, backward, band_err, backward_err, band_times, backward_times
 
 
+# Phase 15: ``TPU.remat`` under ``TPU.spatial``, each banded ResNet block one
+# checkpoint over all its bands. (a) the flagship in float32 (TF32 off,
+# deterministic algorithms) at SPLIT_TRAIN split in 2 and 4 bands on cuda:0:
+# two steps with remat against two without from the same weights, batches
+# and dropout generators: losses, accuracies, every parameter, gradient and
+# BN buffer bit-equal, each of its 16 blocks recomputed once a step, the
+# band forward and backward launched as without remat; (b) the same for
+# UPerNet (stride 32) in 2 bands, one step; (c) bf16 (default algorithms)
+# ms/step, peak memory and the memory allocated between steps, remat on
+# against off, at SPLIT_TRAIN in 2 and 4 bands and at BENCH_TRAIN in 2: remat
+# must lower the peak; (d) ``cli.train --device cuda:0 TPU.spatial 2 TPU.remat
+# True`` for one epoch of phase 8's data. With several cards the multi-card
+# check adds (a) over cuda:0-1 and cuda:0-3 with one backward thread
+# (bit-equal), two NCCL ranks of 2 cards each (remat on against off: as many
+# all-reduces a step; bit-equal states with one backward thread), ``cli.train
+# --devices N/2 TPU.spatial 2 TPU.remat True`` (the ranks and the CLI killed
+# after SPATIAL_REMAT_TIMEOUT), and, with the default multithreaded backward,
+# one f32 step at BENCH_TRAIN over the cards, remat on against off: the
+# forward (loss, accuracy, BN buffers) bit-equal and every gradient within
+# its SPATIAL_REMAT_THREAD_LIMITS.
+FLAGSHIP_BLOCKS = 16  # ResNet-50's 3 + 4 + 6 + 3
+SPATIAL_REMAT_COST = [(SPLIT_TRAIN, 2), (SPLIT_TRAIN, 4), (BENCH_TRAIN, 2)]
+SPATIAL_REMAT_TIMED = 3  # timed steps after a warm-up step, each setting
+SPATIAL_REMAT_TIMEOUT = 600  # seconds for the ranks and for the CLI over cards
+# Over cards with multithreaded backward, {leaf: relative norm error} of a
+# gradient with remat against the split step without it. There a tensor
+# that takes gradients from several cards sums them in the order they
+# arrive, so the two differ by f32 rounding, amplified back through the
+# network as between the split and the unsplit step: (b)'s limits at
+# BENCH_TRAIN (SPLIT_GRAD_LIMITS), 0.06 for every other leaf. A recompute
+# that saved wrong tensors moves a gradient by its own magnitude.
+SPATIAL_REMAT_THREAD_LIMITS = SPLIT_GRAD_LIMITS[BENCH_TRAIN]
+SPATIAL_REMAT_THREAD_REL = 0.06
+
+
+def _remat_steps(torch, ppm_pool, tag, cfg, batches, spatial, device, pooled):
+    """A fresh train state of ``cfg`` from the seeded weights, one step on
+    each of ``batches`` (step i's dropout generator) split over ``spatial``,
+    each band's pool forward and backward launched once a step. Returns
+    (the steps' (loss, accuracy), the blocks recomputed in each, the
+    state)."""
+    from semseg_tpu_torch.models import resnet
+    from semseg_tpu_torch.parallel import dropout_generator, train_step
+
+    state = _train_model(torch, cfg, device, spatial=spatial)
+    bands = len(spatial) * len(batches) if pooled else 0
+
+    def run():
+        out = []
+        for i, b in enumerate(batches):
+            before = resnet.RECOMPUTES
+            m = train_step(state, b, dropout_generator(0, i))
+            out.append((float(m["loss"]), float(m["acc"]), resnet.RECOMPUTES - before))
+        return out
+
+    out, _, dense, valid = _run_path(tag, run, ppm_pool, torch, band=bands, band_backward=bands)
+    if (dense, valid) != (0, 0):
+        raise RuntimeError(f"{tag}: pool launches dense {dense} / valid {valid}")
+    return [o[:2] for o in out], [o[2] for o in out], state
+
+
+def _state_tensors(state):
+    """A train state's parameters, gradients and buffers, by name."""
+    params = {k: p.detach() for k, p in state.model.named_parameters()}
+    return {**params, **{k + " (gradient)": p.grad for k, p in state.model.named_parameters()},
+            **dict(state.model.named_buffers())}
+
+
+def _distance(torch, a, b):
+    """(the names of the tensors that differ between two states' tensors,
+    the largest max |a - b| / max |b| over them)."""
+    differ = [k for k, v in b.items() if not torch.equal(a[k], v)]
+    rel = max((float((a[k].double() - b[k].double()).abs().max()
+                     / b[k].double().abs().max().clamp(min=1e-30)) for k in differ), default=0.0)
+    return differ, rel
+
+
+def spatial_remat_exact(torch, ppm_pool, card, lists, tag, path=CFG, steps=2,
+                        one_thread=False):
+    """(a), (b) and the multi-card check: ``steps`` float32 steps (TF32
+    off, deterministic algorithms) of ``path``'s model at SPLIT_TRAIN split
+    over each device list of ``lists``, with ``TPU.remat`` and without, from
+    the same weights, batches and dropout generators: losses, accuracies,
+    every parameter, gradient and buffer bit-equal, every block recomputed
+    once a step with remat and none without, the band launches alike.
+
+    Over several cards autograd runs each card's part of the backward on a
+    thread of its own, and a tensor that takes gradients from several
+    cards sums them in the order they arrive, so the split step is not
+    bit-reproducible there (``spatial_remat_threads``): over cards
+    ``one_thread`` turns multithreaded backward off (one thread issues
+    every card's backward). Returns the band launches (each also a band
+    backward launch)."""
+    from semseg_tpu_torch.models import resnet
+
+    dev0 = "cuda:0" if CARD == "cuda" else CARD
+    cfgs = {remat: _cfg("TPU.compute_dtype", "float32", "TPU.remat", str(remat), path=path)
+            for remat in (False, True)}
+    pooled = cfgs[False].MODEL.arch_decoder in POOLED_DECODERS
+    stride = cfgs[False].DATASET.segm_downsampling_rate
+    batches = [_split_batch(torch, 17 + i, *SPLIT_TRAIN, dev0, stride) for i in range(steps)]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    engine = "one backward thread" if one_thread else "default backward engine"
+    launches = 0
+    try:
+        with _deterministic(torch), torch.autograd.set_multithreading_enabled(not one_thread):
+            for spatial in lists:
+                runs = [_remat_steps(torch, ppm_pool, f"{tag} {len(spatial)} bands, TPU.remat "
+                                     f"{remat}, {engine}", cfgs[remat], batches, spatial, dev0,
+                                     pooled) for remat in (False, True)]
+                launches += 2 * len(spatial) * steps if pooled else 0
+                (pm, prec, plain), (rm, rrec, remat) = runs
+                blocks = sum(isinstance(m, resnet.ResBlock) for m in remat.model.modules())
+                ref = _state_tensors(plain)
+                differ, rel = _distance(torch, _state_tensors(remat), ref)
+                it = float(remat.model.encoder.bn1._running_iter)
+                want_it = 1.0
+                for _ in range(steps):
+                    want_it = want_it * 0.999 + 1
+                print(f"{tag} {path.rsplit('/', 1)[-1]}, {len(spatial)} bands on "
+                      f"{sorted(set(map(str, spatial)))}, {engine}, f32, TF32 off, "
+                      f"deterministic, batch {SPLIT_TRAIN[0]} at {SPLIT_TRAIN[1]}x"
+                      f"{SPLIT_TRAIN[2]}, {steps} steps, TPU.remat on against off: losses "
+                      f"{[m[0] for m in rm]} / {[m[0] for m in pm]}, accuracies "
+                      f"{[m[1] for m in rm]} / {[m[1] for m in pm]}; of {len(ref)} parameters, "
+                      f"gradients and buffers {len(differ)} differ {differ[:3]}, largest "
+                      f"relative difference {rel:.3e}; blocks recomputed a step {rrec} / {prec} ({blocks} blocks); stem "
+                      f"iter {it:.6f} (want {want_it:.6f}); "
+                      + (f"{len(spatial)} band forward and backward launches a step each run"
+                         if pooled else "no pool launches") + f" (card: {card})", flush=True)
+                if rm != pm or differ or rrec != [blocks] * steps or prec != [0] * steps \
+                        or abs(it - want_it) >= 1e-5:
+                    raise RuntimeError(f"TPU.remat over {spatial} ({engine}): the split remat "
+                                       "step departs from the split step without it")
+                del runs, plain, remat, ref
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return launches
+
+
+def spatial_remat_threads(torch, ppm_pool, card, lists, tag):
+    """The multi-card check's last part: one float32 step (TF32 off,
+    deterministic algorithms, the default multithreaded backward) of the
+    flagship at BENCH_TRAIN split over each device list of ``lists``, with
+    ``TPU.remat`` and without, from the same weights, batch and dropout
+    generator. Autograd runs each card's part of the backward on a thread
+    of its own, so two threads may meet in a block's recompute, and a
+    tensor that takes gradients from several cards sums them in the order
+    they arrive: the forward (loss, accuracy, every BN buffer) must be
+    bit-equal, each gradient within its SPATIAL_REMAT_THREAD_LIMITS
+    (SPATIAL_REMAT_THREAD_REL for the others) in relative norm, and every
+    block recomputed once."""
+    dev0 = "cuda:0" if CARD == "cuda" else CARD
+    cfgs = {remat: _cfg("TPU.compute_dtype", "float32", "TPU.remat", str(remat))
+            for remat in (False, True)}
+    batch = _split_batch(torch, 17, *BENCH_TRAIN, dev0)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with _deterministic(torch):
+            for spatial in lists:
+                (pm, prec, plain), (rm, rrec, remat) = [
+                    _remat_steps(torch, ppm_pool, f"{tag} {len(spatial)} bands, TPU.remat "
+                                 f"{remat}, multithreaded backward", cfgs[remat], [batch],
+                                 spatial, dev0, True) for remat in (False, True)]
+                params = dict(remat.model.named_parameters())
+                grads = sorted(((float((params[k].grad - p.grad).norm() / p.grad.norm()), k)
+                                for k, p in plain.model.named_parameters()), reverse=True)
+                over = [(v, k) for v, k in grads
+                        if not v <= SPATIAL_REMAT_THREAD_LIMITS.get(k, SPATIAL_REMAT_THREAD_REL)]
+                buffers = dict(remat.model.named_buffers())
+                differ = [k for k, b in plain.model.named_buffers()
+                          if not torch.equal(buffers[k], b)]
+                print(f"{tag} flagship, {len(spatial)} bands on {sorted(set(map(str, spatial)))}, "
+                      f"multithreaded backward, f32, TF32 off, deterministic, batch "
+                      f"{BENCH_TRAIN[0]} at {BENCH_TRAIN[1]}x{BENCH_TRAIN[2]}, one step, "
+                      f"TPU.remat on against off: loss {rm[0][0]} / {pm[0][0]}, accuracy "
+                      f"{rm[0][1]} / {pm[0][1]}; of {len(buffers)} BN buffers {len(differ)} "
+                      f"differ; gradients' relative norm error, largest: "
+                      + ", ".join(f"{k} {v:.3e}" for v, k in grads[:4])
+                      + ", limited: " + ", ".join(
+                          f"{k} {v:.3e} (limit {SPATIAL_REMAT_THREAD_LIMITS[k]})" for v, k in grads
+                          if k in SPATIAL_REMAT_THREAD_LIMITS)
+                      + f" (others {SPATIAL_REMAT_THREAD_REL}); {len(over)} of {len(grads)} over "
+                      f"their limit; blocks recomputed {rrec} / {prec} (card: {card})", flush=True)
+                if rm != pm or differ or over or rrec != [FLAGSHIP_BLOCKS] or prec != [0]:
+                    raise RuntimeError(f"TPU.remat over {spatial} (multithreaded backward): the "
+                                       f"split remat step departs from the split step without "
+                                       f"it: {over[:3]}")
+                del plain, remat, params, buffers
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return 2 * sum(map(len, lists))
+
+
+def spatial_remat_cost(torch, ppm_pool, card):
+    """(c): bf16 (default algorithms) ms/step (median of SPATIAL_REMAT_TIMED
+    after a warm-up step), peak memory and the memory allocated between
+    steps of the flagship split in bands on cuda:0, at each (shape, bands)
+    of SPATIAL_REMAT_COST, remat off and on. Fails unless remat lowers the
+    peak. Returns (the band launches, {(shape, bands): {remat: (ms, peak
+    GiB, between-step GiB)}})."""
+    import numpy as np
+
+    from semseg_tpu_torch.parallel import dropout_generator, train_step
+
+    dev0 = "cuda:0" if CARD == "cuda" else CARD
+    steps = 1 + SPATIAL_REMAT_TIMED
+    launches, out = 0, {}
+    for shape, bands in SPATIAL_REMAT_COST:
+        batch = _split_batch(torch, 16, *shape, dev0)
+        row = {}
+        for remat in (False, True):
+            state = _train_model(torch, _cfg("TPU.remat", str(remat)), dev0,
+                                 spatial=[dev0] * bands)
+
+            def run():
+                float(train_step(state, batch, dropout_generator(0, 0))["loss"])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated() / 2**30
+                seconds = []
+                for i in range(1, steps):
+                    tic = time.perf_counter()
+                    float(train_step(state, batch, dropout_generator(0, i))["loss"])
+                    seconds.append(time.perf_counter() - tic)
+                return (float(np.median(seconds)) * 1e3,
+                        torch.cuda.max_memory_allocated() / 2**30, base)
+
+            row[remat], _, _, _ = _run_path(
+                f"[spatial-remat] (c) batch {shape[0]} {shape[1]}x{shape[2]} in {bands} bands, "
+                f"TPU.remat {remat}, {steps} steps", run, ppm_pool, torch,
+                band=bands * steps, band_backward=bands * steps)
+            launches += bands * steps
+            del state
+            torch.cuda.empty_cache()
+        (pms, ppeak, pbase), (rms, rpeak, rbase) = row[False], row[True]
+        print(f"[spatial-remat] (c) flagship bf16, batch {shape[0]} at {shape[1]}x{shape[2]} in "
+              f"{bands} bands on {dev0}, median of {SPATIAL_REMAT_TIMED} steps after a "
+              f"warm-up: remat off {pms:.1f} ms, peak {ppeak:.3f} GiB; remat on {rms:.1f} ms, "
+              f"peak {rpeak:.3f} GiB (allocated between steps {pbase:.3f} / {rbase:.3f} GiB); "
+              f"remat/plain: time {rms / pms:.3f}x, peak {rpeak / ppeak:.3f}x, peak above the "
+              f"between-step allocation {(rpeak - rbase) / (ppeak - pbase):.3f}x (card: "
+              f"{card})", flush=True)
+        if not rpeak < ppeak:
+            raise RuntimeError(f"TPU.remat did not lower the split step's peak at {shape} in "
+                               f"{bands} bands: {rpeak} against {ppeak} GiB")
+        out[(shape, bands)] = row
+    return launches, out
+
+
+def spatial_remat_phase(work, torch, ppm_pool, card, root, odgt):
+    """Phase 15: (a)-(d) above. Returns (the band forward launches, each
+    also a band backward launch; (c)'s measurements)."""
+    start = time.perf_counter()
+    dev0 = "cuda:0" if CARD == "cuda" else CARD
+    launches = spatial_remat_exact(torch, ppm_pool, card, [[dev0] * 2, [dev0] * 4],
+                                   "[spatial-remat] (a)")
+    launches += spatial_remat_exact(torch, ppm_pool, card, [[dev0] * 2], "[spatial-remat] (b)",
+                                    os.path.join(HERE, "config", ZOO_SPATIAL_CONFIGS[0]), 1)
+    more, cost = spatial_remat_cost(torch, ppm_pool, card)
+    launches += more + split_train_cli(work, torch, ppm_pool, root, odgt, card, remat=True)
+    print(f"[spatial-remat] phase 15 took {time.perf_counter() - start:.1f} s; {launches} band "
+          f"forward and {launches} band backward launches (card: {card})", flush=True)
+    return launches, cost
+
+
+def _remat_rank(rank, port, out, groups, backend):
+    """Rank ``rank`` of ``spatial_remat_ranks`` (a spawned process): its
+    bands on ``groups[rank]``, ``backend`` between the ranks, two float32
+    steps (TF32 off, deterministic algorithms) without and then with remat
+    from the same weights and batches, with multithreaded backward and with
+    one backward thread. Saves each run's metrics, all-reduces and
+    recomputes a step, and its state's digest."""
+    import torch
+    import torch.distributed as dist
+
+    from semseg_tpu_torch.models import resnet
+    from semseg_tpu_torch.parallel import distributed, dropout_generator, train_step
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    devices = groups[rank]
+    device = distributed.initialize(f"127.0.0.1:{port}", len(groups), rank, backend=backend,
+                                    device=devices[0], timeout=SPATIAL_REMAT_TIMEOUT // 2)
+    real, calls = dist.all_reduce, []
+    dist.all_reduce = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        batches = [_split_batch(torch, 30 + 2 * i + rank, *SPLIT_TRAIN, device)
+                   for i in range(2)]
+        result = {}
+        for threads in (True, False):
+            with _deterministic(torch), torch.autograd.set_multithreading_enabled(threads):
+                for remat in (False, True):
+                    state = _train_model(torch, _cfg("TPU.compute_dtype", "float32",
+                                                     "TPU.remat", str(remat)), device,
+                                         group=dist.group.WORLD, spatial=devices)
+                    run = {"metrics": [], "all_reduces": [], "recomputes": []}
+                    for i, b in enumerate(batches):
+                        calls.clear()
+                        before = resnet.RECOMPUTES
+                        m = train_step(state, b, dropout_generator(0, i))
+                        run["metrics"].append((float(m["loss"]), float(m["acc"])))
+                        run["all_reduces"].append(len(calls))
+                        run["recomputes"].append(resnet.RECOMPUTES - before)
+                    run["digest"] = _digest(_state_tensors(state))
+                    result[threads, remat] = run
+                    del state
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.all_reduce = real
+        distributed.shutdown()
+
+
+def spatial_remat_ranks(work, torch, card, groups, backend="nccl"):
+    """The multi-card check's ranks: a rank over each device list of
+    ``groups`` (``_remat_rank``), remat on against off: each rank's
+    metrics and state bit-equal between the runs and equal to rank 0's,
+    as many all-reduces a step with remat as without, every block
+    recomputed once a step. A rank that has not ended within
+    SPATIAL_REMAT_TIMEOUT (a mismatched collective hangs) is killed and the
+    check fails."""
+    from semseg_tpu_torch.parallel import distributed
+
+    out = os.path.join(work, "spatial_remat_ranks")
+    os.makedirs(out)
+    tic = time.perf_counter()
+    world = len(groups)
+    ctx = torch.multiprocessing.spawn(_remat_rank, args=(distributed.free_port(), out, groups,
+                                                         backend), nprocs=world, join=False)
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - tic > SPATIAL_REMAT_TIMEOUT:
+            for proc in ctx.processes:
+                proc.kill()
+            raise RuntimeError(f"{world} ranks over {groups} with TPU.remat did not end within "
+                               f"{SPATIAL_REMAT_TIMEOUT} s (mismatched collectives?)")
+    wall = time.perf_counter() - tic
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    for r, got in enumerate(ranks):
+        for threads in (True, False):
+            plain, remat = got[threads, False], got[threads, True]
+            engine = "multithreaded backward" if threads else "one backward thread"
+            print(f"[multi] spatial remat, rank {r} of {world} {backend} ranks, its bands on "
+                  f"{groups[r]}, {engine}, f32, TF32 off, deterministic, batch "
+                  f"{SPLIT_TRAIN[0]} at {SPLIT_TRAIN[1]}x{SPLIT_TRAIN[2]} a rank, 2 steps: "
+                  f"losses {[m[0] for m in remat['metrics']]} / "
+                  f"{[m[0] for m in plain['metrics']]} (remat on / off); all-reduces a step "
+                  f"{remat['all_reduces']} / {plain['all_reduces']}; blocks recomputed a step "
+                  f"{remat['recomputes']} / {plain['recomputes']}; state digest equal between "
+                  f"the runs {remat['digest'] == plain['digest']}, to rank 0's "
+                  f"{remat['digest'] == ranks[0][threads, True]['digest']}; {wall:.1f} s from "
+                  f"spawn to exit (card: {card})", flush=True)
+            # With multithreaded backward the runs are not bit-reproducible
+            # (spatial_remat_threads): their forward is.
+            same = (remat["digest"] == plain["digest"] and remat["metrics"] == plain["metrics"]
+                    if not threads else remat["metrics"][0] == plain["metrics"][0])
+            if (not same or remat["all_reduces"] != plain["all_reduces"]
+                    or remat["recomputes"] != [FLAGSHIP_BLOCKS] * 2
+                    or plain["recomputes"] != [0, 0]
+                    or remat["digest"] != ranks[0][threads, True]["digest"]):
+                raise RuntimeError(f"rank {r} ({engine}): the split remat step departs from "
+                                   "the split step without it, or from rank 0")
+
+
+def spatial_remat_multi_card(work, torch, ppm_pool, card, root, odgt, n):
+    """The multi-card check's part of phase 15: (a) with the bands over
+    cuda:0-1 and cuda:0-3 and one backward thread, the ranks (four cards or
+    more), ``cli.train --devices n/2 ... TPU.spatial 2 TPU.remat True`` for
+    one epoch in a process of its own, killed after SPATIAL_REMAT_TIMEOUT,
+    and last the multithreaded backward (``spatial_remat_threads``)."""
+    import signal
+
+    import numpy as np
+
+    start = time.perf_counter()
+    lists = [[f"cuda:{j}" for j in range(b)] for b in (2, 4) if b <= n]
+    spatial_remat_exact(torch, ppm_pool, card, lists, "[multi] spatial remat,", one_thread=True)
+    if n >= 4:
+        spatial_remat_ranks(work, torch, card, [["cuda:0", "cuda:1"], ["cuda:2", "cuda:3"]])
+    out = os.path.join(work, "multi_spatial_remat_train")
+    tic = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "semseg_tpu_torch.cli.train", "--cfg", CFG, "--devices",
+         str(n // 2), *([] if CARD == "cuda" else ["--device", CARD]), "DIR", out,
+         *_train_cfg_opts(root, odgt), "TRAIN.num_epoch", "1", "TRAIN.disp_iter", "1",
+         "TRAIN.workers", "1", "TPU.spatial", "2", "TPU.remat", "True"],
+        cwd=HERE, start_new_session=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        log, _ = proc.communicate(timeout=SPATIAL_REMAT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"cli.train TPU.spatial 2 TPU.remat True over {n} cards did not end "
+                           f"within {SPATIAL_REMAT_TIMEOUT} s")
+    wall = time.perf_counter() - tic
+    losses = []
+    if proc.returncode == 0:
+        with open(os.path.join(out, "history_epoch_1.json")) as f:
+            losses = json.load(f)["train"]["loss"]
+    if proc.returncode or len(losses) != TRAIN_ITERS or not np.all(np.isfinite(losses)) \
+            or not os.path.exists(os.path.join(out, "encoder_epoch_1.pth")):
+        raise RuntimeError(f"cli.train TPU.spatial 2 TPU.remat True over {n} cards: exit "
+                           f"{proc.returncode}, losses {losses}; its log ends {log[-2000:]}")
+    print(f"[multi] cli.train TPU.spatial 2 TPU.remat True over {n} cards ({n // 2} data "
+          f"group(s) of 2 cards): {TRAIN_ITERS} steps at batch 2 per group, bf16, full width; "
+          f"per-step global losses {losses}; {wall:.1f} s wall (its own process, spawn, model "
+          f"builds and the checkpoint included; card: {card})", flush=True)
+    spatial_remat_threads(torch, ppm_pool, card, lists, "[multi] spatial remat,")
+    print(f"[multi] the spatial remat check took {time.perf_counter() - start:.1f} s (card: "
+          f"{card})", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3725,8 +4168,10 @@ def main(argv=None) -> int:
         zoo_band, zoo_backward, zoo_band_err, zoo_backward_err, zoo_band_times, \
             zoo_backward_times = spatial_zoo_phase(work, torch, ppm_pool, card, zoo_ckpts,
                                                    val_dir, odgt, train_root, train_odgt)
-        band_launches += split_launches + zoo_band
-        split_launches += zoo_backward
+        remat_launches, _ = spatial_remat_phase(work, torch, ppm_pool, card, train_root,
+                                                train_odgt)
+        band_launches += split_launches + zoo_band + remat_launches
+        split_launches += zoo_backward + remat_launches
         band_err = max(band_err, train_band_err, zoo_band_err)
         band_backward_err = max(band_backward_err, zoo_backward_err)
         if torch.cuda.device_count() > 1:

@@ -46,8 +46,8 @@ either, every visible card divided by S, which must divide it. With a bare
 ``--device cuda`` rank r's bands run on cards ``[r*S, (r+1)*S)``; with
 ``cuda:K`` or ``cpu`` every band runs on that device (one data group
 unless a count is given). As in JAX, the hybrid mesh is single-host
-(``--multihost`` raises), and ``TPU.remat`` has no banded form yet (ROADMAP
-item 17e).
+(``--multihost`` raises) and takes ``TPU.remat``: each banded ResNet block
+is recomputed in the backward (``models.resnet.banded_block``).
 """
 
 from __future__ import annotations
@@ -350,16 +350,10 @@ def parse_args(argv=None):
 
 def check_spatial(cfg, multihost: bool) -> None:
     """What ``TPU.spatial`` > 1 cannot combine with: several hosts (as in
-    JAX, ``semseg_tpu/cli/train.py:52-56``) and remat (no banded form yet)."""
-    if cfg.TPU.spatial <= 1:
-        return
-    if multihost:
+    JAX, ``semseg_tpu/cli/train.py:52-56``)."""
+    if cfg.TPU.spatial > 1 and multihost:
         raise NotImplementedError("TPU.spatial hybrid training is single-host; combine "
                                   "--multihost with pure data parallelism instead")
-    if cfg.TPU.remat:
-        raise NotImplementedError(
-            f"TPU.remat with TPU.spatial {cfg.TPU.spatial}: the banded forward has no remat "
-            "yet (ROADMAP item 17e); drop one of the two")
 
 
 def main(argv=None):

@@ -22,30 +22,33 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 
-from semseg_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train_bands
+from semseg_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train_bands, replaying
 
 
 _recompute = threading.local()
 
 
 @contextlib.contextmanager
-def recomputing():
+def recomputing(kept: Sequence[torch.Tensor] = ()):
     """The context of an activation checkpoint's recompute in the backward
-    (``models.resnet.ResBlock`` under ``TPU.remat``): a training BN there
+    (``models.resnet.checkpointed``, ``TPU.remat``): a training BN there
     normalises with the batch statistics as the first forward did, but
     leaves its running statistics and ``_running_iter`` as that forward
     left them, so that a step advances them once, as JAX's functional
-    ``batch_stats`` do."""
+    ``batch_stats`` do; and ``ops.norm.all_reduce_sum`` returns the
+    forward's outputs ``kept`` instead of communicating
+    (``ops.norm.replaying``)."""
     _recompute.active = True
     try:
-        yield
+        with replaying(kept):
+            yield
     finally:
         _recompute.active = False
 
@@ -135,8 +138,9 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     Inside an activation checkpoint's recompute (``recomputing``) training
     mode computes the same output and does not touch the buffers. With a
-    process group the recompute all-reduces the statistics again; every
-    rank recomputes the same blocks in the same order of one backward.
+    process group the recompute does not all-reduce the statistics again:
+    it takes the totals its forward all-reduced (``ops.norm.replaying``),
+    so a backward issues the same collectives with remat as without.
     """
 
     ROWWISE = True  # in eval (see Dropout2d)

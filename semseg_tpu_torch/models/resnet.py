@@ -11,10 +11,12 @@
 
 With ``remat`` (``TPU.remat``; the JAX package wraps each ``ResBlock`` in
 ``nn.remat``) every residual block of a training forward runs under
-``torch.utils.checkpoint``: its activations are dropped after the forward
-and recomputed in the backward, for less activation memory at the cost of
-a second forward through the blocks. Eval is unchanged. BN's running
-statistics advance once per forward (``layers.recomputing``).
+``torch.utils.checkpoint`` (``checkpointed``): its activations are dropped
+after the forward and recomputed in the backward, for less activation
+memory at the cost of a second forward through the blocks. Eval is
+unchanged. BN's running statistics advance once per forward, and the
+recompute issues no collective: it replays the totals its forward's BNs
+all-reduced (``layers.recomputing``).
 
 ``banded_features`` is the forward of an image split in row bands across
 devices (``parallel/spatial.py``), in eval (``cli.eval --spatial``, with
@@ -24,8 +26,10 @@ parameters, each conv with its halo rows, BN (over the whole map in
 training), ReLU and the residual add per band. It returns the four stage
 maps, as ``forward`` does, at any output stride: the band plan is cut at
 the encoder's coarsest stride (``models.segmentation.band_base``), so the
-strided convs of layers 2-4 keep every band edge exact. Remat has no
-banded form yet.
+strided convs of layers 2-4 keep every band edge exact. With remat each
+banded block of a training forward is one checkpoint over all its bands
+(``banded_block``), recomputed once in the backward, on one autograd
+thread, when the gradients of all its bands have arrived.
 
 Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
 ``layer3.0.downsample.0``), so its checkpoints load as they are. The encoder
@@ -34,7 +38,6 @@ returns the four stage outputs ``[c2, c3, c4, c5]``.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -42,6 +45,7 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from semseg_tpu_torch.ops.norm import keeping
 from semseg_tpu_torch.ops.pool import max_pool2d
 from semseg_tpu_torch.parallel.spatial import (
     Bands,
@@ -50,9 +54,54 @@ from semseg_tpu_torch.parallel.spatial import (
     band_max_pool,
     run_banded,
 )
-from .layers import BatchNorm2d, Conv2d, ConvBN, recomputing
+from .layers import BatchNorm2d, Conv2d, ConvBN, in_recompute, recomputing
 
 EXPANSION = {"basic": 1, "bottleneck": 4, "group_bottleneck": 2}
+
+#: Checkpointed calls recomputed in a backward (``checkpointed``), counted
+#: for the tests and ``chip_smoke.py``.
+RECOMPUTES = 0
+
+
+class _RecomputeFirst(torch.autograd.Function):
+    """The identity on the outputs of a checkpointed call, saving the first
+    under the checkpoint. Its backward is the call's first node (it takes
+    every output's gradient, from every band's card) and unpacks that
+    tensor, so the whole recompute runs there, on one autograd thread,
+    before any other node of the call needs a saved tensor. Over bands on
+    several cards autograd runs each card's nodes on a thread of its own,
+    and ``torch.utils.checkpoint`` lets no second thread enter a recompute
+    that another is running."""
+
+    @staticmethod
+    def forward(ctx, *outs):
+        ctx.save_for_backward(outs[0])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.saved_tensors  # noqa: B018 (the unpack recomputes the call)
+        return grads
+
+
+def checkpointed(fn, *args):
+    """The tensors ``fn(*args)`` returns (a sequence), computed under a
+    non-reentrant activation checkpoint: the tensors it saves for the
+    backward are dropped and recomputed there, once, in the
+    ``layers.recomputing`` context, as its outputs' gradients all arrive
+    (``_RecomputeFirst``). ``fn`` draws no random numbers (no RNG state is
+    kept), and its all-reduces are replayed in the recompute, not repeated
+    (``ops.norm.keeping``)."""
+    kept = []
+
+    def run(*inputs):
+        global RECOMPUTES
+        if in_recompute():
+            RECOMPUTES += 1
+        return _RecomputeFirst.apply(*fn(*inputs))
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (keeping(kept), recomputing(kept)))
 
 
 class ResBlock(nn.Module):
@@ -90,12 +139,14 @@ class ResBlock(nn.Module):
             if has_downsample else None
         )
 
+    def takes_checkpoint(self) -> bool:
+        """Whether this block's forward runs under a checkpoint now: remat,
+        training mode and grad enabled."""
+        return self.remat and self.training and torch.is_grad_enabled()
+
     def forward(self, x):
-        if self.remat and self.training and torch.is_grad_enabled():
-            # The block has no random op, so no RNG state is kept for the
-            # recompute.
-            return checkpoint(self._forward, x, use_reentrant=False, preserve_rng_state=False,
-                              context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+        if self.takes_checkpoint():
+            return checkpointed(lambda t: [self._forward(t)], x)[0]
         return self._forward(x)
 
     def _forward(self, x):
@@ -173,7 +224,24 @@ class ResNetEncoder(nn.Module):
 
 
 def banded_block(blocks: Sequence[ResBlock], x: Bands) -> Bands:
-    """``ResBlock._forward`` over a banded map (``blocks[j]``: band j's copy)."""
+    """``ResBlock.forward`` over a banded map (``blocks[j]``: band j's copy,
+    or ``[block]`` for every band). A block that takes a checkpoint
+    (``ResBlock.takes_checkpoint``) takes one for all the bands: its inputs
+    are the band tensors, each on its device, and the recompute re-reads
+    the halos and BN's sums over the bands."""
+    if not blocks[0].takes_checkpoint():
+        return _banded_block(blocks, x)
+    stride = []  # the output's (the recompute finds the same)
+
+    def run(*parts):
+        out = _banded_block(blocks, Bands(list(parts), x.plan, x.stride))
+        stride[:] = [out.stride]
+        return out.parts
+
+    return Bands(list(checkpointed(run, *x.parts)), x.plan, stride[0])
+
+
+def _banded_block(blocks: Sequence[ResBlock], x: Bands) -> Bands:
     def each(name):
         return [getattr(b, name) for b in blocks]
 

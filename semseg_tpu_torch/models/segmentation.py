@@ -39,8 +39,11 @@ decoder run with this one model's parameters (``banded_features``,
 ``decoders.banded_train_logits``), and each band's loss and accuracy sums
 against its label rows are added on the first band's device before the
 group's all-reduce, so the loss is the unsplit forward's. Every encoder
-and decoder of ``ModelBuilder`` trains banded; remat has no banded form
-yet (ROADMAP item 17e).
+and decoder of ``ModelBuilder`` trains banded; with ``TPU.remat`` each
+ResNet/ResNeXt block is checkpointed over all its bands
+(``resnet.banded_block``), as JAX's ``nn.remat`` runs under its hybrid
+mesh, while the decoder (the pyramid pool included), deep supervision and
+the loss stay outside any checkpoint.
 """
 
 from __future__ import annotations
@@ -170,9 +173,6 @@ class SegmentationModel(nn.Module):
     def _banded_loss(self, img, seg_label, spatial):
         """The training forward over ``spatial`` devices (module docstring)."""
         check_banded(self)
-        if any(getattr(m, "remat", False) for m in self.encoder.modules()):
-            raise NotImplementedError("TPU.remat has no banded form yet (ROADMAP item 17e); "
-                                      "train with TPU.spatial 1 or without remat")
         plan = BandPlan(img.shape[2], len(spatial), band_base(self))
         devices = list(spatial)[:plan.count]
         with ordered_collectives():  # BN's all-reduces, over bands on several cards

@@ -46,6 +46,16 @@ hung all-reduces). Inside ``ordered_collectives`` every differentiable
 ``all_reduce_sum`` takes the previous one's output as an input (its
 gradient for it is None): the backward then runs them in the reverse of
 the forward's order, which is the same on every rank.
+
+An activation checkpoint's recompute (``TPU.remat``) issues no collective:
+it runs in the middle of the backward, on the thread of one card, where an
+all-reduce would fall between the chained backward ones in another order
+on each rank. Its forward runs inside ``keeping(kept)``,
+which appends each ``all_reduce_sum`` output to ``kept`` (2C f32 values of
+a batch norm, on the first band's device); its recompute inside
+``replaying(kept)``, where ``all_reduce_sum`` returns them in order and
+communicates nothing. The recompute's graph is never differentiated: the
+backward runs the forward's, whose all-reduces keep their chain.
 """
 
 from __future__ import annotations
@@ -78,7 +88,47 @@ class _AllReduceSum(torch.autograd.Function):
         return (grad, None) + (None,) * ctx.after
 
 
+class _Replayed(torch.autograd.Function):
+    """``totals``, the output of the all-reduce of ``x`` in the checkpointed
+    forward, in its recompute: the same value, requiring grad where the
+    all-reduce's output does, so that the recompute saves the tensors the
+    forward saved (non-reentrant ``checkpoint`` checks their count, shapes
+    and devices)."""
+
+    @staticmethod
+    def forward(ctx, x, totals):
+        return totals.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError("the graph of a checkpoint's recompute is not differentiated")
+
+
 _order = threading.local()
+_kept = threading.local()
+
+
+@contextlib.contextmanager
+def keeping(kept: list):
+    """While entered (in this thread), ``all_reduce_sum`` appends its
+    output to ``kept`` (module docstring)."""
+    _kept.record = kept
+    try:
+        yield
+    finally:
+        _kept.record = None
+
+
+@contextlib.contextmanager
+def replaying(kept):
+    """While entered (in this thread), ``all_reduce_sum`` returns the
+    outputs ``kept`` recorded, in order, and issues no collective (module
+    docstring)."""
+    _kept.replay = iter(kept)
+    try:
+        yield
+    finally:
+        _kept.replay = None
 
 
 @contextlib.contextmanager
@@ -100,11 +150,18 @@ def all_reduce_sum(x, group=None):
     without a group."""
     if group is None:
         return x
+    replay = getattr(_kept, "replay", None)
+    if replay is not None:
+        return _Replayed.apply(x, next(replay))
     if not (getattr(_order, "active", False) and x.requires_grad and torch.is_grad_enabled()):
-        return _AllReduceSum.apply(x, group)
-    after = () if _order.last is None else (_order.last,)
-    _order.last = _AllReduceSum.apply(x, group, *after)
-    return _order.last
+        out = _AllReduceSum.apply(x, group)
+    else:
+        after = () if _order.last is None else (_order.last,)
+        out = _order.last = _AllReduceSum.apply(x, group, *after)
+    record = getattr(_kept, "record", None)
+    if record is not None:
+        record.append(out.detach())
+    return out
 
 
 def group_size(group=None) -> int:

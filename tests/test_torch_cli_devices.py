@@ -14,8 +14,9 @@
   cpu`` runs one engine over two CPU bands. ``cli.train``'s (data groups,
   spatial) selection is JAX's ``build_train_mesh(c, devices).shape`` for
   the cases of ``tests/test_cli.py:128-155`` ("must divide" included), on
-  conftest's 8 CPU devices against 8 cards; ``--multihost`` and
-  ``TPU.remat`` with ``TPU.spatial`` raise.
+  conftest's 8 CPU devices against 8 cards; ``--multihost`` with
+  ``TPU.spatial`` raises, ``TPU.remat`` with it is taken (its model's
+  ``spatial`` forward checkpoints the ResNet blocks).
 * ``cli.eval --profile DIR`` writes a Chrome trace of the eval loop, when
   the loop ends and when it raises.
 """
@@ -149,12 +150,29 @@ def test_train_mesh_follows_jax_build_train_mesh(data_parallel, devices, spatial
             torch.device("cuda", spatial + j) for j in range(spatial)]
 
 
-def test_spatial_refuses_multihost_and_remat():
+def test_spatial_refuses_multihost_and_takes_remat(monkeypatch):
     with pytest.raises(NotImplementedError, match="single-host"):
         train_cli.main(["--cfg", CFG18, "--multihost", "TPU.spatial", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17e"):
-        train_cli.main(["--cfg", CFG18, "--device", "cpu", "TPU.spatial", "2",
-                        "TPU.remat", "True"])
+    args = train_cli.parse_args(["--cfg", CFG18, "--device", "cpu", "TPU.spatial", "2",
+                                 "TPU.remat", "True"])
+    c = train_cli.load_cfg(args)
+    assert (c.TPU.spatial, c.TPU.remat) == (2, True)
+    train_cli.check_spatial(c, multihost=False)
+    # The built model's spatial forward checkpoints each of resnet18's 8
+    # blocks.
+    import torch.utils.checkpoint as ckpt
+
+    from semseg_tpu_torch.models import resnet
+
+    calls = []
+    monkeypatch.setattr(resnet, "checkpoint", lambda *a, **k: calls.append(1) or
+                        ckpt.checkpoint(*a, **k))
+    model = ModelBuilder.build_model(c, device="cpu", seed=0).train()
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.randn(2, 3, 64, 64).astype(np.float32))
+    label = torch.from_numpy(rng.randint(-1, 150, (2, 8, 8))).long()
+    loss, _ = model(img, seg_label=label, spatial=["cpu", "cpu"])
+    assert torch.isfinite(loss) and len(calls) == 8
 
 
 def test_eval_profile_writes_a_trace_on_either_exit(train_set, tmp_path, monkeypatch):  # noqa: F811

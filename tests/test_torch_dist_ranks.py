@@ -121,8 +121,10 @@ def train_rank(rank, out, case):
     parameters and compute, from the JAX model's weights
     (``case['weights']``: a file of the port's encoder and decoder state
     dicts), on
-    this rank's own batches, padded here to the ranks' canvas. Saves the
-    steps' metrics, the padded batches and the state."""
+    this rank's own batches, padded here to the ranks' canvas
+    (``case['tag']``, default ``"train"``, names the exchange), with
+    ``TPU.remat`` if ``case['remat']``. Saves the steps' metrics, the padded
+    batches, the ``dist.all_reduce`` calls of each step and the state."""
     import torch.distributed as dist
 
     from semseg_tpu_torch.config import cfg as default_cfg
@@ -137,6 +139,7 @@ def train_rank(rank, out, case):
     cfg.TRAIN.num_epoch = 2
     cfg.TRAIN.epoch_iters = 10
     cfg.TPU.compute_dtype = "float64"
+    cfg.TPU.remat = case.get("remat", False)
     model = ModelBuilder.build_model(cfg, device="cpu").to(torch.float64)
     enc, dec = torch.load(case["weights"])
     model.encoder.load_state_dict(enc, strict=True)
@@ -145,17 +148,34 @@ def train_rank(rank, out, case):
         if isinstance(m, Dropout2d):
             m.p = 0.0
     state = create_train_state(cfg, model.train(), group=dist.group.WORLD)
-    exchange = distributed.CanvasExchange("train")
+    exchange = distributed.CanvasExchange(case.get("tag", "train"))
     accum = case["grad_accum"]
-    metrics, padded = [], []
-    for batch in case["batches"][rank]:
-        batch = distributed._sync_batch_canvas(batch, exchange, microbatched=accum > 1)
-        padded.append(batch)
-        m = train_step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, None, accum)
-        metrics.append((float(m["loss"]), float(m["acc"])))
+    metrics, padded, all_reduces = [], [], []
+    real, calls = dist.all_reduce, []
+    dist.all_reduce = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        for batch in case["batches"][rank]:
+            batch = distributed._sync_batch_canvas(batch, exchange, microbatched=accum > 1)
+            padded.append(batch)
+            calls.clear()
+            m = train_step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, None,
+                           accum)
+            metrics.append((float(m["loss"]), float(m["acc"])))
+            all_reduces.append(len(calls))
+    finally:
+        dist.all_reduce = real
     _save(out, rank, {"metrics": metrics, "padded": padded, "step": state.step,
-                      "encoder": model.encoder.state_dict(),
+                      "all_reduces": all_reduces, "encoder": model.encoder.state_dict(),
                       "decoder": model.decoder.state_dict()})
+
+
+def remat_rank(rank, out, case):
+    """``train_rank`` of ``case`` without ``TPU.remat`` into ``<out>/plain``,
+    then with it into ``out``, from the same weights and batches."""
+    plain = os.path.join(out, "plain")
+    os.makedirs(plain, exist_ok=True)
+    train_rank(rank, plain, {**case, "remat": False, "tag": "plain"})
+    train_rank(rank, out, {**case, "remat": True})
 
 
 def train_cli_rank(rank, args, world, port, log):

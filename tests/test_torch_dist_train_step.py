@@ -103,7 +103,9 @@ def reference_weights():
     return variables, state_dicts_from_jax(variables, "resnet18dilated", "ppm_deepsup")
 
 
-def check_two_ranks_against_jax(monkeypatch, out, grad_accum, seed):
+def check_two_ranks_against_jax(monkeypatch, out, grad_accum, seed, remat=False):
+    """The ranks' two steps against JAX's (module docstring), both with
+    ``TPU.remat`` set to ``remat``; returns the ranks' results."""
     monkeypatch.setattr(jax_decoders, "Dropout2d", _NoDropout)
     variables, weights = reference_weights()
     per_rank = rank_batches(seed, grad_accum)
@@ -112,9 +114,10 @@ def check_two_ranks_against_jax(monkeypatch, out, grad_accum, seed):
     path = os.path.join(out, "weights.pt")
     torch.save(weights, path)
     join = start(train_rank, 2, out, {"weights": path, "batches": per_rank,
-                                      "grad_accum": grad_accum})
+                                      "grad_accum": grad_accum, "remat": remat})
     # JAX's step runs while the ranks do.
     jc = small_cfgs()[0]
+    jc.TPU.remat = remat
     jstate = jax_create_train_state(jc, JaxModelBuilder.build_model(jc, dtype=jnp.float64),
                                     variables)
     batches = [global_batch(step, grad_accum > 1) for step in zip(*per_rank)]
@@ -143,6 +146,24 @@ def check_two_ranks_against_jax(monkeypatch, out, grad_accum, seed):
             if not k.endswith("num_batches_tracked"):
                 np.testing.assert_allclose(mine[k].numpy(), v.numpy(), err_msg=k, **PARAM_TOL)
     return ranks
+
+
+def check_remat_against_plain(ranks, out):
+    """The ranks of ``test_torch_dist_ranks.remat_rank`` (``ranks``, with
+    remat) against their own run without remat (``<out>/plain``): as many
+    ``dist.all_reduce`` calls a step, equal metrics and every parameter and
+    buffer bit-equal; ``_running_iter`` advanced twice."""
+    plain = load(os.path.join(out, "plain"))
+    for r, (got, ref) in enumerate(zip(ranks, plain)):
+        counts = got["all_reduces"]
+        # Per step: each BN forward and backward, the loss, the gradients.
+        assert counts == ref["all_reduces"] and len(counts) == 2 and counts[0] > 2, r
+        assert got["metrics"] == ref["metrics"], r
+        for part in ("encoder", "decoder"):
+            for k, v in ref[part].items():
+                assert torch.equal(got[part][k], v), f"rank {r}: {part}.{k}"
+    it = ranks[0]["encoder"]["bn1._running_iter"]
+    np.testing.assert_allclose(float(it), (1 * 0.999 + 1) * 0.999 + 1, rtol=1e-7)
 
 
 @pytest.fixture(autouse=True)
