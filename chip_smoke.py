@@ -145,11 +145,13 @@ PyTorch built for CUDA. In order:
    (8, 56, 76, 2048) each in 2 and 4 bands, with odd C, unaligned
    gradients, bands of one row and bins straddling bands: each launch
    repeated bit for bit and each band bit-equal to the dense backward
-   kernel's rows; the first band timed warm and L2-cold beside its bound;
-   (b) the flagship at full width in float32 (TF32 off, deterministic
-   algorithms), batch 2 at 448x608, one step split in 2 and 4 bands on
-   cuda:0 against the unsplit step from the same weights, batch and
-   dropout generator, with phase 10 (a)'s limits (loss, accuracy, the
+   kernel's rows (with ``--compare``, also to the other build's band
+   backward); the first band timed warm and L2-cold beside its bound, with
+   the kernel's device time under the profiler (with ``--compare``, the
+   other build's in turns); (b) the flagship at full width in float32
+   (TF32 off, deterministic algorithms), batch 2 at 448x608, one step
+   split in 2 and 4 bands on cuda:0 against the unsplit step from the same
+   weights, batch and dropout generator, with phase 10 (a)'s limits (loss, accuracy, the
    gradients of phase 10's parameters and of the stem's first conv, every
    BN statistic, ``iter`` equal), the band forward and backward launched
    once per band and no dense pool; (c) bf16: the split step's loss falls
@@ -164,7 +166,8 @@ PyTorch built for CUDA. In order:
    (full and partial extents), the training maps (2 and 8, 14, 19, 2048)
    in 2 and 4 bands and in bands of 1-3 rows, each against its plain
    version, bit-equal on repeat, each backward band bit-equal to the dense
-   backward's rows, the first band timed L2-cold beside its bound; (b) each
+   backward's rows (and to the other build's with ``--compare``), the first
+   band timed L2-cold beside its bound (the other build in turns); (b) each
    config split in 2 and 4 bands on cuda:0 against its unsplit engine over
    two of phase 6's images: float32 (TF32 off) within 2e-4 (HRNetV2) or
    1e-3 (UPerNet, whose random logits reach ~1e3) with the logits' largest
@@ -276,8 +279,8 @@ TIME_CASES = [
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # The pool's kernels as the profiler names them (substrings of the
 # demangled names): the dense and pad-aware forms' two passes, the band
-# form, the backward. A profile check that finds none of a form's kernels
-# fails.
+# form, the backward (the dense backward and the band backward). A profile
+# check that finds none of a form's kernels fails.
 FORWARD_KERNELS = ("ppm_cells_kernel", "ppm_combine_kernel")
 BAND_KERNEL = "ppm_band_kernel"
 BACKWARD_KERNEL = "ppm_pool_backward_kernel"
@@ -509,20 +512,46 @@ def _profiled(fn, torch, flush, calls=10, names=()):
     profiled again (up to five times) while it records no device activity
     or, with ``names``, fewer than ``calls`` kernels of those names (CUPTI
     sometimes drops a profile's kernels, or one kernel's record: three
-    profiles in a row kept 9 of 10 band launches on an H100)."""
+    profiles in a row kept 9 of 10 band launches on an H100), or while its
+    timeline disagrees with CUDA events around the same calls: the span
+    from the spin kernel's end (the start event) to the last kernel's end
+    must be within 3% of the events' (on an H100 a profile now and then
+    reads every kernel and every gap between them at 0.5-0.8x, while the
+    events do not move). Raises if five profiles in a row disagree."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # Keep the card busy (~10 ms) while the host enqueues every call
+            # and the end event, so that no host delay lies between them.
+            torch.cuda._sleep(20_000_000)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
             for _ in range(calls):
                 flush.sum()
                 fn()
+            end.record()
             torch.cuda.synchronize()
         events = prof.key_averages()
         named = sum(e.count for e in events if any(n in e.key for n in names))
-        if any(e.device_type == DeviceType.CUDA for e in events) and named >= calls * bool(names):
-            break
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ranges = [e.time_range for e in device if "spin_kernel" not in e.name]
+        if not ranges:
+            continue
+        spin = [e.time_range.end for e in device if "spin_kernel" in e.name]
+        span = max(r.end for r in ranges) - (spin[0] if spin else min(r.start for r in ranges))
+        timed = start.elapsed_time(end) * 1e3
+        if abs(span / timed - 1) <= 0.03:
+            if named >= calls * bool(names):
+                break
+        else:
+            print(f"[profile] the profile's span {span:.2f} us against the events' {timed:.2f} "
+                  "us: profiled again", flush=True)
+    else:
+        if ranges and abs(span / timed - 1) > 0.03:
+            raise RuntimeError(f"five profiles in a row disagree with the events (last: span "
+                               f"{span:.2f} us against {timed:.2f} us)")
     return events
 
 
@@ -1286,21 +1315,41 @@ def check_backward_against(ppm_pool, torch, other) -> None:
                   flush=True)
 
 
-def _turns(fn_of, libs, torch, flush, card, what):
+def _device_us(fn, torch, flush, names, what):
+    """Device time (us) of one call of ``fn`` under torch.profiler, over 10
+    cold calls that must launch one kernel of ``names`` each; None where the
+    profiler recorded no device activity."""
+    dev = _matching(_profiled(fn, torch, flush, names=names), names, what)
+    if not dev:
+        return None
+    if sum(e.count for e in dev) != 10:
+        raise RuntimeError(f"{what}: {[e.count for e in dev]} kernels for 10 calls")
+    return sum(e.self_device_time_total for e in dev) / 10
+
+
+def _us(us):
+    return "not measured (no device activity recorded)" if us is None else f"{us:.2f} us"
+
+
+def _turns(fn_of, libs, torch, flush, card, what, names=()):
     """``--compare``: ``fn_of(lib)`` timed cold and warm in turns, other,
-    this, this, other, on one card."""
+    this, this, other, on one card; with ``names``, also the device time of
+    its kernel (one of ``names``) under the profiler."""
     runs = []
     for who in ("other", "this", "this", "other"):
         fn = fn_of(libs[who])
-        runs.append(f"{who} {_median_ms(fn, torch, flush):.4f} cold / "
-                    f"{_median_ms(fn, torch):.4f} warm")
+        run = f"{who} {_median_ms(fn, torch, flush):.4f} cold / {_median_ms(fn, torch):.4f} warm"
+        if names:
+            run += f" / {_us(_device_us(fn, torch, flush, names, f'{what} ({who})'))} device"
+        runs.append(run)
     print(f"[compare] {what} (ms): " + "; ".join(runs) + f" (card: {card})", flush=True)
 
 
 def time_backward(ppm_pool, torch, card, compare=None) -> dict:
-    """Phase 8: (warm ms, cold ms, plain ms, bound ms, bound_by) of the
-    backward kernel per timed shape and dtype; one kernel per call under the
-    profiler. With ``compare``, the other build in turns."""
+    """Phase 8: (warm ms, cold ms, plain ms, bound ms, bound_by, device ms)
+    of the backward kernel per timed shape and dtype, the last from the
+    profiler (one kernel per call; None where it recorded no device
+    activity). With ``compare``, the other build in turns."""
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     lib = ppm_pool._lib()
     out = {}
@@ -1314,21 +1363,19 @@ def time_backward(ppm_pool, torch, card, compare=None) -> dict:
             cold = _median_ms(run, torch, flush)
             plain = _median_ms(lambda: ppm_pool.pyramid_pool_backward_plain(grads, (h, w)), torch)
             bound, bound_by = backward_bound_ms(shape, grads[0].element_size())
-            dev = _matching(_profiled(run, torch, flush, names=(BACKWARD_KERNEL,)),
-                            (BACKWARD_KERNEL,), f"pyramid_pool backward {shape}")
-            if dev and sum(e.count for e in dev) != 10:
-                raise RuntimeError(f"pyramid_pool backward {shape}: {[e.count for e in dev]} "
-                                   "kernels for 10 calls")
-            out[(shape, dt)] = (warm, cold, plain, bound, bound_by)
+            us = _device_us(run, torch, flush, (BACKWARD_KERNEL,),
+                            f"pyramid_pool backward {shape}")
+            out[(shape, dt)] = (warm, cold, plain, bound, bound_by, None if us is None else us / 1e3)
             print(f"[time] pyramid_pool backward {shape} {dt}: kernel {warm:.4f} ms warm, "
                   f"{cold:.4f} ms cold; bound {bound:.4f} ms ({bound_by}), share of bound "
                   f"{bound / cold:.3f} cold, {bound / warm:.3f} warm; kernel under the profiler "
-                  f"(cold) {f'{dev[0].self_device_time_total / dev[0].count:.2f} us' if dev else 'not measured (no device activity recorded)'}; plain "
-                  f"{plain:.4f} ms (median of 50; card: {card})", flush=True)
+                  f"(cold) {_us(us)}; plain {plain:.4f} ms (median of 50; card: {card})",
+                  flush=True)
             if compare is not None:
                 _turns(lambda lb: lambda: ppm_pool.launch_backward(lb, grads, (h, w)),
                        {"this": lib, "other": compare}, torch, flush, card,
-                       f"pyramid_pool backward {shape} {dt}")
+                       f"pyramid_pool backward {shape} {dt}",
+                       (BACKWARD_KERNEL,))
     return out
 
 
@@ -3011,12 +3058,13 @@ def _cuts(shape, bands, base=8):
 
 
 def check_band_backward_kernel(ppm_pool, torch, checks=BAND_BACKWARD_CHECKS,
-                               tag="[spatial-train]", base=8) -> float:
+                               tag="[spatial-train]", base=8, compare=None) -> float:
     """(a): every band of each case of ``checks`` (its cuts at stride
     ``base``) against the plain version and bit-equal to the dense backward
     kernel's rows, each launch repeated bit for bit; the second case also
-    on unaligned gradients. Returns the largest absolute difference from
-    the plain version."""
+    on unaligned gradients. With ``compare``, each band also bit-equal to
+    the other build's band backward. Returns the largest absolute
+    difference from the plain version."""
     max_err = 0.0
     g = torch.Generator(device="cuda").manual_seed(13)
     lib = ppm_pool._lib()
@@ -3043,6 +3091,13 @@ def check_band_backward_kernel(ppm_pool, torch, checks=BAND_BACKWARD_CHECKS,
                         f"pyramid_pool_band_backward {shape} {dt} rows [{a}, {b}): not the "
                         f"dense backward's rows (max |d| "
                         f"{(out.float() - dense[:, a:b].float()).abs().max():.3e})")
+                if compare is not None:
+                    theirs = ppm_pool.launch_band_backward(compare, grads, a, b - a, (h, w))
+                    if not torch.equal(out, theirs):
+                        raise RuntimeError(
+                            f"pyramid_pool_band_backward {shape} {dt} rows [{a}, {b}): this "
+                            f"build differs from the other by "
+                            f"{(out.float() - theirs.float()).abs().max():.3e}")
                 ref = ppm_pool.pyramid_pool_band_backward_plain(grads, a, b - a, (h, w))
                 # As the dense backward against its plain version (phase 8).
                 tol = dict(atol=1e-6, rtol=1e-6) if dtype == torch.float32 else \
@@ -3051,8 +3106,9 @@ def check_band_backward_kernel(ppm_pool, torch, checks=BAND_BACKWARD_CHECKS,
                 err = max(err, (out.float() - ref.float()).abs().max().item())
             max_err = max(max_err, err)
             where = ", unaligned gradients" if unaligned else ""
+            other = " and to the other build's" if compare is not None else ""
             print(f"{tag} pyramid_pool_band_backward {shape} {dt} rows {cuts}{where}: "
-                  f"ok, each band bit-equal to the dense backward kernel's rows and on "
+                  f"ok, each band bit-equal to the dense backward kernel's rows{other} and on "
                   f"repeat; max |d| from the plain version {err:.3e}", flush=True)
     torch.cuda.synchronize()
     return max_err
@@ -3070,12 +3126,14 @@ def band_backward_bound_ms(shape, element_size):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def time_band_backward(ppm_pool, torch, card, timed=BAND_BACKWARD_TIMED, base=8) -> dict:
+def time_band_backward(ppm_pool, torch, card, timed=BAND_BACKWARD_TIMED, base=8,
+                       compare=None) -> dict:
     """(a), timed: the first band of each cut of ``timed`` (at stride
     ``base``) warm and L2-cold beside its bound, its plain version, and the
     dense backward on the whole map, cold; one kernel per call under the
-    profiler. Returns {(shape, bands, dtype): (warm, cold, plain, bound,
-    bound_by)}."""
+    profiler, whose device time is the last number. With ``compare``, the
+    other build in turns, its device time too. Returns {(shape, bands,
+    dtype): (warm, cold, plain, bound, bound_by, device ms or None)}."""
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     lib = ppm_pool._lib()
     out = {}
@@ -3093,19 +3151,21 @@ def time_band_backward(ppm_pool, torch, card, timed=BAND_BACKWARD_TIMED, base=8)
                 grads, r0, hb, (h, w)), torch)
             dense = _median_ms(lambda: ppm_pool.launch_backward(lib, grads, (h, w)), torch, flush)
             bound, bound_by = band_backward_bound_ms((n, hb, w, c), grads[0].element_size())
-            dev = _matching(_profiled(run, torch, flush, names=(BACKWARD_KERNEL,)),
-                            (BACKWARD_KERNEL,), f"pyramid_pool_band_backward {shape}")
-            if dev and sum(e.count for e in dev) != 10:
-                raise RuntimeError(f"pyramid_pool_band_backward {shape}: "
-                                   f"{[e.count for e in dev]} kernels for 10 calls")
-            out[(shape, bands, dt)] = (warm, cold, plain, bound, bound_by)
+            what = f"pyramid_pool_band_backward rows [{r0}, {r0 + hb}) of {shape} {dt}"
+            us = _device_us(run, torch, flush, (BACKWARD_KERNEL,), what)
+            out[(shape, bands, dt)] = (warm, cold, plain, bound, bound_by,
+                                       None if us is None else us / 1e3)
+            share = "" if us is None else f", {bound * 1e3 / us:.3f} of the device time"
             print(f"[time] pyramid_pool_band_backward rows [{r0}, {r0 + hb}) of {shape} "
                   f"({len(cuts) - 1} bands) {dt}: kernel {warm:.4f} ms warm, {cold:.4f} ms cold; "
                   f"bound {bound:.4f} ms ({bound_by}), share of bound {bound / cold:.3f} cold, "
-                  f"{bound / warm:.3f} warm; kernel under the profiler (cold) "
-                  f"{f'{dev[0].self_device_time_total / dev[0].count:.2f} us' if dev else 'not measured (no device activity recorded)'}"
-                  f"; plain {plain:.4f} ms; the dense backward on the whole map {dense:.4f} ms "
+                  f"{bound / warm:.3f} warm{share}; kernel under the profiler (cold) {_us(us)}; "
+                  f"plain {plain:.4f} ms; the dense backward on the whole map {dense:.4f} ms "
                   f"cold (median of 50; card: {card})", flush=True)
+            if compare is not None:
+                _turns(lambda lb: lambda: ppm_pool.launch_band_backward(lb, grads, r0, hb, (h, w)),
+                       {"this": lib, "other": compare}, torch, flush, card, what,
+                       (BACKWARD_KERNEL,))
     return out
 
 
@@ -3322,16 +3382,17 @@ def split_train_cli(work, torch, ppm_pool, root, odgt, card, remat=False):
     return want
 
 
-def spatial_train_phase(work, torch, ppm_pool, card, root, odgt):
-    """Phase 13: (a)-(d) above. Returns (the band forward and band backward
-    launches of the training paths, the band backward's largest error
-    from its plain version, its times, ms/step split and unsplit)."""
+def spatial_train_phase(work, torch, ppm_pool, card, root, odgt, compare=None):
+    """Phase 13: (a)-(d) above (with ``compare``, (a) also against the
+    other build). Returns (the band forward and band backward launches of
+    the training paths, the band backward's largest error from its plain
+    version, its times, ms/step split and unsplit)."""
     start = time.perf_counter()
     band_err = check_band_kernel(ppm_pool, torch, [
         (shape, [list(shape[1:3])] * shape[0], _cuts(shape, bands))
         for shape, bands in SPLIT_BAND_CHECKS], "[spatial-train]")
-    err = check_band_backward_kernel(ppm_pool, torch)
-    times = time_band_backward(ppm_pool, torch, card)
+    err = check_band_backward_kernel(ppm_pool, torch, compare=compare)
+    times = time_band_backward(ppm_pool, torch, card, compare=compare)
     dev0 = "cuda:0" if CARD == "cuda" else CARD
     launches = sum(split_step_against_unsplit(torch, ppm_pool, card, [[dev0] * 2, [dev0] * 4],
                                               "[spatial-train] (b)", shape)
@@ -3445,19 +3506,21 @@ ZOO_SPLIT_GRAD_LIMITS = {
 ZOO_TIMED_STEPS = 2
 
 
-def zoo_band_kernels(ppm_pool, torch, card):
+def zoo_band_kernels(ppm_pool, torch, card, compare=None):
     """(a): the band form and the band backward on UPerNet's stride-32 conv5
     maps against their plain versions, bit-equal on repeat, each backward
-    band bit-equal to the dense backward's rows; timed L2-cold beside their
-    bounds. Returns (the band form's largest error, the band backward's,
-    the band form's times, the band backward's)."""
+    band bit-equal to the dense backward's rows (and with ``compare`` to the
+    other build's band backward, timed against it in turns); timed L2-cold
+    beside their bounds. Returns (the band form's largest error, the band
+    backward's, the band form's times, the band backward's)."""
     band_err = check_band_kernel(ppm_pool, torch, [
         (shape, extents, _cuts(shape, bands, 32)) for shape, extents, bands in ZOO_BAND_CHECKS],
         "[spatial-zoo]")
     backward_err = check_band_backward_kernel(ppm_pool, torch, ZOO_BAND_BACKWARD_CHECKS,
-                                              "[spatial-zoo]", base=32)
+                                              "[spatial-zoo]", base=32, compare=compare)
     band_times = time_band_kernel(ppm_pool, torch, card, shape=ZOO_BAND_SHAPE, base=32)
-    backward_times = time_band_backward(ppm_pool, torch, card, ZOO_BAND_BACKWARD_TIMED, base=32)
+    backward_times = time_band_backward(ppm_pool, torch, card, ZOO_BAND_BACKWARD_TIMED, base=32,
+                                        compare=compare)
     return band_err, backward_err, band_times, backward_times
 
 
@@ -3639,13 +3702,15 @@ def zoo_spatial_cli(work, zoo_ckpts, root, odgt, torch, ppm_pool, card):
     return band, backward
 
 
-def spatial_zoo_phase(work, torch, ppm_pool, card, zoo_ckpts, val_dir, odgt, root, train_odgt):
-    """Phase 14: (a)-(d) above. Returns (band launches, band backward
+def spatial_zoo_phase(work, torch, ppm_pool, card, zoo_ckpts, val_dir, odgt, root, train_odgt,
+                      compare=None):
+    """Phase 14: (a)-(d) above (with ``compare``, (a)'s band backward also
+    against the other build). Returns (band launches, band backward
     launches, the band form's largest error, the band backward's, their
     times)."""
     start = time.perf_counter()
     band_err, backward_err, band_times, backward_times = zoo_band_kernels(ppm_pool, torch,
-                                                                          card)
+                                                                          card, compare)
     band = zoo_spatial_engines(zoo_ckpts, val_dir, odgt, torch, ppm_pool, card)
     backward = 0
     dev0 = "cuda:0" if CARD == "cuda" else CARD
@@ -4162,12 +4227,13 @@ def main(argv=None) -> int:
         band_launches, _, band_times = spatial_phase(work, torch, ppm_pool, card, ckpt,
                                                      val_dir, odgt, compare)
         split_launches, band_backward_err, band_backward_times, _, train_band_err = \
-            spatial_train_phase(work, torch, ppm_pool, card, train_root, train_odgt)
+            spatial_train_phase(work, torch, ppm_pool, card, train_root, train_odgt, compare)
         print(f"[spatial] band launches: phase 12 {band_launches}; phase 13 {split_launches} "
               f"band and {split_launches} band backward", flush=True)
         zoo_band, zoo_backward, zoo_band_err, zoo_backward_err, zoo_band_times, \
             zoo_backward_times = spatial_zoo_phase(work, torch, ppm_pool, card, zoo_ckpts,
-                                                   val_dir, odgt, train_root, train_odgt)
+                                                   val_dir, odgt, train_root, train_odgt,
+                                                   compare)
         remat_launches, _ = spatial_remat_phase(work, torch, ppm_pool, card, train_root,
                                                 train_odgt)
         band_launches += split_launches + zoo_band + remat_launches
@@ -4179,7 +4245,7 @@ def main(argv=None) -> int:
                              train_odgt, zoo_ckpts)
 
     def timed(case):
-        return dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by"), case))
+        return dict(zip(("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by", "device_ms"), case))
 
     def numbers(case):
         # bf16 at the first timed case of the form; no single PyTorch call

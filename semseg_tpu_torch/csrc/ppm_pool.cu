@@ -109,45 +109,56 @@
 // 128 or 32 channels, adding their cell sums through distributed shared
 // memory, and a warp per cell were slower: PERF.md, section 6.)
 //
-// Backward (ppm_pool_backward_kernel), for training through the dense
-// form: grad_x[n, h, w, c] = sum over the scales s and the bins (i, j) of
-// s that hold (h, w) of g_s[n, i, j, c] / area_s(i, j), summed in f32 in
-// the order scale 1, 2, 3, 6 and (i, j) row-major, rounded once to the
-// input dtype. The JAX package has no backward for its Pallas kernel (it
-// differentiates XLA's integral-image pool, semseg_tpu/ops/pool.py:55,
-// which gives the same sum). Each term is g times the bin's reciprocal
-// area, which the host computes and rounds once (50 floats passed with the
-// launch; a division per term called the IEEE division's slow path and
-// made the scalar f32 form spill). The sum is constant over each of the
-// cells above, since a cell lies wholly inside or outside every bin. What
-// bounds it: the bytes of grad_x written (N * H * W * C elements; the bin
-// gradients are 50 * C per sample); it reads nothing per pixel. On a small
-// map (the flagship's batch-2 conv5, (2, 40, 56)) a cell is ~22 pixels,
-// and a block per cell spent its time on set-up and dependent gathers,
-// not on stores. A block here takes rows of one row segment of one sample
-// (at most 128 KB of grad_x, at least two blocks an SM) and a tile of 32 *
-// V channels, with the segments from the host. It loads the sample's 50
-// bin gradients of its tile into shared memory in one round of loads;
-// then each warp forms its cells' vectors from them and at once stores
-// each to the cell's pixels with one TMA bulk store (cp.async.bulk) of the
-// tile's bytes per pixel from shared memory, so the bytes in flight take
-// no registers and a one-pixel cell idles no warp. The terms and their
-// order are those of a block per cell, so the result is bit for bit the
-// same. No atomics: repeated runs agree bit for bit. Odd C or unaligned
-// pointers take scalar stores.
+// Backward (ppm_pool_backward_kernel): rows [row0, row0 + hb) of the
+// input gradient of the dense form, into an (N, hb, W, C) band. The dense
+// backward (training through the dense form) is the band [0, H); the band
+// backward (cli.train TPU.spatial, each image's height split in bands) is
+// any other. grad_x[n, h, w, c] = sum over the scales s and the bins (i, j)
+// of s that hold (h, w) of g_s[n, i, j, c] / area_s(i, j), summed in f32
+// in the order scale 1, 2, 3, 6 and (i, j) row-major, rounded once to the
+// input dtype. Bins and areas are those of the whole H-row map, so a band
+// is the dense gradient's rows bit for bit. The JAX package has no
+// backward for its Pallas kernel: it differentiates XLA's integral-image
+// pool (semseg_tpu/ops/pool.py:55), which gives the same sum, and under
+// the hybrid mesh it does so over the sharded height. Each term is g times
+// the bin's reciprocal area, which the host computes and rounds once (a
+// division per term called the IEEE division's slow path). The sum is
+// constant over each of the cells above, since a cell lies wholly inside
+// or outside every bin.
 //
-// Band backward (ppm_pool_band_backward_launch), for training with each
-// image's height split in bands (cli.train TPU.spatial): rows [row0, row0
-// + hb) of the backward above, written to an (N, hb, W, C) band. Bins and
-// reciprocal areas stay those of the whole H-row map, so each element is
-// the same terms in the same order with the same host-rounded reciprocals
-// as the dense backward's: its rows, bit for bit. The host cuts the map's
-// row segments at the band's edges and the blocks take units of those
-// clipped segments, so no block stores outside the band (a clipped
-// segment's rows lie in the bins its whole segment lies in); the kernel is
-// the dense backward's, which offsets its stores by the band's first row.
-// Under the hybrid mesh the JAX package differentiates XLA's pool
-// (semseg_tpu/ops/pool.py:55) over the sharded height.
+// What bounds it: the bytes of the band written (the bin gradients are 50
+// * C per sample; nothing is read per pixel), and at the split step's
+// bands (10-20 rows of the flagship's batch-2 (2, 40, 56) conv5, 1.5-2.9
+// us of bytes in bf16) the latency of a block's chain before its first
+// store: at the first band of 4 in bf16 the kernel's stores alone take
+// most of its device time, and the chain before them (lookups, staging,
+// cells) the rest (PERF.md, section 6, the backward's redesign). The design:
+// - A block takes a unit of rows inside one row segment (the map's
+//   segments cut at the band's edges) of one sample, every column, and a
+//   tile of 32 * V channels. The unit's rows lie in the same row bins, at
+//   most two of a scale on a map of 6 rows or more, so the block stages
+//   only those bins' gradients (at most 23 of the 50) and reciprocal areas,
+//   in one round of 16-byte loads.
+// - Warp b forms column segment b's cell vector from them, with the bins'
+//   ranges from the host. On a map of 6 or more rows and columns a cell
+//   lies in at most 2 x 2 bins of a scale, and each scale's loads are
+//   issued before its adds: a loop over the bins that loaded as it added
+//   was slower at the split step's bands.
+// - Then warp ty takes columns ty, ty + 8, ..., and each lane stores its
+//   16 bytes of the column's vector to every row of the unit: every warp
+//   stores, a warp instruction writes 512 contiguous bytes, and no bulk
+//   copy is involved (512-byte bulk stores ran at tens of GB/s a block).
+//   At the split step's bands the stores add little to the chain; from
+//   bench.py's bands on they are most of the time.
+// - A unit is one row, and more rows while the grid has more blocks than
+//   the card runs at once and a unit stores at most 128 KB, so the split
+//   step's bands run as one wave.
+// The dense call takes this kernel too: at the training maps (bench.py's
+// (8, 56, 76), (2, 80, 128), the flagship's (2, 40, 56)) it was no slower
+// than a block per row segment staging all 50 bins and storing each pixel
+// with a TMA bulk copy (PERF.md, section 6). No atomics: repeated runs
+// agree bit for bit. Odd C or unaligned pointers take scalar loads and
+// stores.
 //
 // Built with nvcc into a shared library with a plain C interface; see
 // semseg_tpu_torch/ops/kernels/ppm_pool.py for the wrapper.
@@ -590,25 +601,67 @@ __device__ __forceinline__ uint4 gather16(const unsigned short* p, int left) {
   return make_uint4(u[0], u[1], u[2], u[3]);
 }
 
-// The gradient of one cell for this thread's V channels, from scale S's
-// bin gradients staged in shared memory (gbin[bin][lane], the lane's V
-// channels as they were loaded): the bins (i, j) that hold the cell's
-// first pixel (r0, c0), in row-major order, each times 1 / its area.
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;  // an H100's; it only sizes grids
+  return sms;
+}
+
+// What a backward block needs from the host: the reciprocal areas, the
+// band's row segments and the map's column segments with the bins that
+// hold each, and how the row segments are cut into units (a block's rows).
+struct BackwardPlan {
+  BinInv inv;
+  int rb[kCands], cb[kCands];  // the band's row segments, the map's column segments
+  int nr, nc;                  // segments
+  int row0, rows;              // the band: rows [row0, row0 + rows) of the map
+  int unit0[kCands];           // units of a sample before row segment a; unit0[nr] all
+  int chunk;                   // rows of a unit, at most
+  int slots;                   // bin gradients a block stages, at most
+  int pairs;                   // h, w >= 6: at most two bins of a scale hold a row or column
+  // Scale si's bins [first, first + count) along each axis that hold row
+  // segment a's rows (rbin[a]) and column segment b's columns (cbin[b]),
+  // one 8-byte word a segment: first in byte 2 si, count in byte 2 si + 1
+  // (the bins that hold a position are consecutive).
+  unsigned long long rbin[kMaxSegs], cbin[kMaxSegs];
+};
+
+__host__ __device__ inline int bin_field(unsigned long long bins, int k) {
+  return (int)((bins >> (8 * k)) & 0xff);
+}
+
+// The bins of scale S along an extent v that hold position x, as bytes
+// 2 si (first) and 2 si + 1 (count) of the word.
+template <int S>
+unsigned long long bins_holding(int x, int v, int si) {
+  int lo = S, hi = -1;
+  for (int i = 0; i < S; ++i)
+    if (x >= bin_start(i, v, S) && x < bin_end(i, v, S)) {
+      lo = std::min(lo, i);
+      hi = i;
+    }
+  return ((unsigned long long)lo << (16 * si)) |
+         ((unsigned long long)(hi - lo + 1) << (16 * si + 8));
+}
+
+// Adds to acc, a cell's gradient for this thread's V channels, scale S's
+// terms: the bins (i, j) with i in [i0, i0 + ni) and j in [j0, j0 + nj),
+// those that hold the cell, in row-major order, each staged at gbin[off + i
+// * S + j][lane] (the lane's V channels as they were loaded) and times 1 /
+// its area.
 template <int S, typename T, bool kVec>
-__device__ __forceinline__ void add_scale_staged(float (&acc)[16 / sizeof(T)],
-                                                 const uint4 (*gbin)[32], const BinInv& inv,
-                                                 int r0, int c0, int h, int w,
-                                                 const bool (&live)[16 / sizeof(T)]) {
+__device__ __forceinline__ void add_scale_bins(float (&acc)[16 / sizeof(T)],
+                                               const uint4 (*gbin)[32], int off,
+                                               const BinInv& inv, int i0, int ni, int j0, int nj,
+                                               const bool (&live)[16 / sizeof(T)]) {
   constexpr int V = 16 / sizeof(T);
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    if (r0 < bin_start(i, h, S) || r0 >= bin_end(i, h, S)) continue;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      if (c0 < bin_start(j, w, S) || c0 >= bin_end(j, w, S)) continue;
+  for (int i = i0; i < i0 + ni; ++i)
+    for (int j = j0; j < j0 + nj; ++j) {
       const float a = inv.v[first_bin(S) + i * S + j];
       float e[V];
-      unpack16(gbin[first_bin(S) + i * S + j][threadIdx.x], e);
+      unpack16(gbin[off + i * S + j][threadIdx.x], e);
       if constexpr (kVec) {
         if (!live[0]) continue;
 #pragma unroll
@@ -619,142 +672,223 @@ __device__ __forceinline__ void add_scale_staged(float (&acc)[16 / sizeof(T)],
           if (live[k]) acc[k] += e[k] * a;
       }
     }
+}
+
+// add_scale_bins where ni, nj <= 2 (every row and column of a map of 6 or
+// more of each lies in one or two bins of a scale), with the reciprocal
+// areas staged beside the gradients (ginv[slot]): the (up to) four terms'
+// loads are all issued before their adds, which keep add_scale_bins' order.
+template <int S, typename T, bool kVec>
+__device__ __forceinline__ void add_scale_pairs(float (&acc)[16 / sizeof(T)],
+                                                const uint4 (*gbin)[32], const float* ginv,
+                                                int off, int i0, int ni, int j0, int nj,
+                                                const bool (&live)[16 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+  uint4 q[4];
+  float a[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int slot = off + (i0 + m / 2) * S + j0 + m % 2;
+    if (m / 2 < ni && m % 2 < nj) {
+      q[m] = gbin[slot][threadIdx.x];
+      a[m] = ginv[slot];
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    if (m / 2 >= ni || m % 2 >= nj) continue;
+    float e[V];
+    unpack16(q[m], e);
+    if constexpr (kVec) {
+      if (!live[0]) continue;
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] += e[k] * a[m];
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (live[k]) acc[k] += e[k] * a[m];
+    }
   }
 }
 
-// What a backward block needs from the host: the reciprocal areas, the
-// map's segment boundaries, and how the row segments are cut into units
-// (a block's rows) and the column segments into parts.
-struct BackwardPlan {
-  BinInv inv;
-  int rb[kCands], cb[kCands];  // segment boundaries of h and of w
-  int nr, nc;                  // segments
-  int row0, rows;              // rows [row0, row0 + rows) of the map are written (the band)
-  int unit0[kCands];           // units of a sample before row segment a; unit0[nr] all
-  int chunk;                   // rows of a unit, at most
-  int parts;                   // groups of column segments
-};
-
-// Backward: block (unit of a sample, column part, channel tile), 32 x
-// kWarps threads, lane = the channels of pass 1 (16-byte vector, or V
-// channels 32 apart). The block loads the sample's 50 bin gradients of
-// its tile into shared memory in one round; then warp ty takes the cells
-// of segments ty, ty + 8 of its part, forms each one's vector from them
-// and at once stores it to the cell's pixels: one TMA bulk store of the
-// tile's bytes per pixel from the vector in shared memory (16-byte
-// vectors), or scalar stores.
+// Backward: block (unit of a sample, channel tile), 32 x kWarps threads,
+// lane = the channels of pass 1 (16-byte vector, or V channels 32 apart).
+// A unit's rows lie in one row segment, so in the same row bins: the block
+// stages only those bins' gradients of its tile (slot base[si] + (i - i0) *
+// S + j for bin (i, j) of scale S) and their reciprocal areas, in one
+// round of loads; then warp b forms column segment b's cell vector from
+// them into shared memory, a lane each; then each warp takes columns ty,
+// ty + kWarps, ..., and stores the column's cell vector to each of the
+// unit's rows with one 16-byte store a lane: 512 contiguous bytes a warp.
+// Four blocks an SM for the vector forms (64 registers); the scalar forms
+// take two (with no minimum ptxas spilled the scalar bf16 form, at 64
+// registers).
 template <typename T, bool kVec>
-__global__ void __launch_bounds__(32 * kWarps, 3)
+__global__ void __launch_bounds__(32 * kWarps, kVec ? 4 : 2)
 ppm_pool_backward_kernel(const T* __restrict__ g1, const T* __restrict__ g2,
                          const T* __restrict__ g3, const T* __restrict__ g6,
-                         T* __restrict__ dx, const __grid_constant__ BackwardPlan p, int h,
-                         int w, int c) {
+                         T* __restrict__ dx, const __grid_constant__ BackwardPlan p, int c) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kTile = 32 * V;
   using Bits = typename std::conditional<sizeof(T) == 2, unsigned short, unsigned>::type;
-  __shared__ uint4 gbin[50][32];        // bin gradients: 25.6 KB
-  __shared__ uint4 cell[kMaxSegs][32];  // the cells' gradients, rounded
+  extern __shared__ __align__(16) unsigned char smem[];  // the band form's declaration
+  uint4(*gbin)[32] = reinterpret_cast<uint4(*)[32]>(smem);  // p.slots bins
+  uint4(*cell)[32] = gbin + p.slots;                        // p.nc cell vectors, rounded
+  float* ginv = reinterpret_cast<float*>(cell + p.nc);      // p.slots reciprocal areas
+  int* cbs = reinterpret_cast<int*>(ginv + p.slots);        // p.nc + 1 column boundaries
   const int units = p.unit0[p.nr];
   const int n = blockIdx.x / units, u = blockIdx.x % units;
   const int tx = threadIdx.x, ty = threadIdx.y, t = ty * 32 + tx;
   int a = 0;
   while (a + 1 < p.nr && p.unit0[a + 1] <= u) ++a;
-  const int r0 = p.rb[a];
-  const int r_lo = r0 + (u - p.unit0[a]) * p.chunk;
+  const int r_lo = p.rb[a] + (u - p.unit0[a]) * p.chunk;
   const int r_hi = min(r_lo + p.chunk, p.rb[a + 1]);
-  const int b_lo = blockIdx.y * p.nc / p.parts, b_hi = (blockIdx.y + 1) * p.nc / p.parts;
-  const int tile0 = blockIdx.z * kTile;
+  const int tile0 = blockIdx.y * kTile;
   const int ch0 = tile0 + (kVec ? tx * V : tx);
 
-  // (bin, lane) = (k / 32, k % 32) for k = t + 256 u: every load first.
-  constexpr int kRounds = (50 * 32 + 32 * kWarps - 1) / (32 * kWarps);
-  uint4 q[kRounds];
+  // The unit's row bins, and this warp's cells' column bins (kMaxSegs <= 2
+  // kWarps: at most two cells a warp), loaded here so that their latency
+  // passes with the staging's.
+  const unsigned long long rw = p.rbin[a];
+  const unsigned long long cw0 = ty < p.nc ? p.cbin[ty] : 0ull;
+  const unsigned long long cw1 = ty + kWarps < p.nc ? p.cbin[ty + kWarps] : 0ull;
+  int i0[4], base[4];
 #pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    const int k = t + r * 32 * kWarps, bin = k / 32, l = k % 32;
-    const int si = bin < 1 ? 0 : bin < 5 ? 1 : bin < 14 ? 2 : 3, s = scale_of(si);
-    const T* g = si == 0 ? g1 : si == 1 ? g2 : si == 2 ? g3 : g6;
-    const T* src = g + ((size_t)n * s * s + bin - first_bin(s)) * c + tile0;
-    q[r] = make_uint4(0u, 0u, 0u, 0u);
-    if (k >= 50 * 32) continue;
-    if constexpr (kVec) {
-      if (tile0 + l * V < c) q[r] = __ldg(reinterpret_cast<const uint4*>(src + l * V));
-    } else {
-      q[r] = gather16(reinterpret_cast<const Bits*>(src) + l, c - tile0 - l);
-    }
+  for (int si = 0; si < 4; ++si) i0[si] = bin_field(rw, 2 * si);
+  base[0] = 0;
+  base[1] = bin_field(rw, 1);
+  base[2] = base[1] + 2 * bin_field(rw, 3);
+  base[3] = base[2] + 3 * bin_field(rw, 5);
+  const int slots = base[3] + 6 * bin_field(rw, 7);
+
+  // (slot, lane) = (k / 32, k % 32) for k = t + 256 r, in batches of
+  // kBatch rounds whose loads are all issued first: a batch holds 32 bins,
+  // so one round of loads stages a unit's bins unless the map has fewer
+  // than 6 rows.
+  constexpr int kBatch = 4;
+  if (t < slots) {
+    const int si = t < base[1] ? 0 : t < base[2] ? 1 : t < base[3] ? 2 : 3;
+    const int s = scale_of(si);
+    const int sb = si == 0 ? base[0] : si == 1 ? base[1] : si == 2 ? base[2] : base[3];
+    const int ib = si == 0 ? i0[0] : si == 1 ? i0[1] : si == 2 ? i0[2] : i0[3];
+    ginv[t] = p.inv.v[first_bin(s) + ib * s + t - sb];
+  } else if (t >= 64 && t <= 64 + p.nc) {
+    cbs[t - 64] = p.cb[t - 64];
   }
+  for (int r0 = 0; r0 * 32 * kWarps < slots * 32; r0 += kBatch) {
+    uint4 q[kBatch];
 #pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    const int k = t + r * 32 * kWarps;
-    if (k < 50 * 32) gbin[k / 32][k % 32] = q[r];
+    for (int r = 0; r < kBatch; ++r) {
+      const int k = t + (r0 + r) * 32 * kWarps, slot = k / 32, l = k % 32;
+      q[r] = make_uint4(0u, 0u, 0u, 0u);
+      if (slot >= slots) continue;
+      // Scale si's bins from slot sb on, its first staged row bin ib.
+      const int si = slot < base[1] ? 0 : slot < base[2] ? 1 : slot < base[3] ? 2 : 3;
+      const int s = scale_of(si);
+      const int sb = si == 0 ? base[0] : si == 1 ? base[1] : si == 2 ? base[2] : base[3];
+      const int ib = si == 0 ? i0[0] : si == 1 ? i0[1] : si == 2 ? i0[2] : i0[3];
+      const T* g = si == 0 ? g1 : si == 1 ? g2 : si == 2 ? g3 : g6;
+      const T* src = g + ((size_t)n * s * s + ib * s + slot - sb) * c + tile0;
+      if constexpr (kVec) {
+        if (tile0 + l * V < c) q[r] = __ldg(reinterpret_cast<const uint4*>(src + l * V));
+      } else {
+        q[r] = gather16(reinterpret_cast<const Bits*>(src) + l, c - tile0 - l);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBatch; ++r) {
+      const int k = t + (r0 + r) * 32 * kWarps;
+      if (k < slots * 32) gbin[k / 32][k % 32] = q[r];
+    }
   }
   bool live[V];  // which of this thread's channels exist
 #pragma unroll
   for (int k = 0; k < V; ++k) live[k] = kVec ? ch0 < c : ch0 + k * 32 < c;
   __syncthreads();
-  const size_t row_stride = (size_t)w * c;
-  const unsigned bytes = (unsigned)(min(kTile, c - tile0) * sizeof(T));  // a pixel's tile
-  for (int b = b_lo + ty; b < b_hi; b += kWarps) {
-    const int c0 = p.cb[b], cw = p.cb[b + 1] - c0;
+
+  for (int b = ty; b < p.nc; b += kWarps) {
     float acc[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[k] = 0.f;
-    add_scale_staged<1, T, kVec>(acc, gbin, p.inv, r0, c0, h, w, live);
-    add_scale_staged<2, T, kVec>(acc, gbin, p.inv, r0, c0, h, w, live);
-    add_scale_staged<3, T, kVec>(acc, gbin, p.inv, r0, c0, h, w, live);
-    add_scale_staged<6, T, kVec>(acc, gbin, p.inv, r0, c0, h, w, live);
-    const int pixels = (r_hi - r_lo) * cw;
-    T* base = dx + ((size_t)n * p.rows + (r_lo - p.row0)) * row_stride + (size_t)c0 * c;
-    if constexpr (kVec) {
-      cell[b - b_lo][tx] = pack16(acc);
-      // The lanes' writes, made by the threads, are read by the bulk copies.
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      __syncwarp();
-      // Pixel p of the cell to lane p % 32, one bulk store of the tile each.
-      const unsigned src = static_cast<unsigned>(__cvta_generic_to_shared(&cell[b - b_lo][0]));
-      int pr = tx / cw, pc = tx % cw;
-      const int dr = 32 / cw, dc = 32 % cw;
-      for (int pp = tx; pp < pixels; pp += 32) {
-        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-                         base + (size_t)pr * row_stride + (size_t)pc * c + tile0),
-                     "r"(src), "r"(bytes)
-                     : "memory");
-        pr += dr;
-        pc += dc;
-        if (pc >= cw) {
-          pc -= cw;
-          ++pr;
-        }
-      }
+    const unsigned long long cb = b == ty ? cw0 : cw1;
+    if (p.pairs) {
+      add_scale_pairs<1, T, kVec>(acc, gbin, ginv, base[0] - i0[0], i0[0], 1, 0, 1, live);
+      add_scale_pairs<2, T, kVec>(acc, gbin, ginv, base[1] - 2 * i0[1], i0[1],
+                                  bin_field(rw, 3), bin_field(cb, 2), bin_field(cb, 3), live);
+      add_scale_pairs<3, T, kVec>(acc, gbin, ginv, base[2] - 3 * i0[2], i0[2],
+                                  bin_field(rw, 5), bin_field(cb, 4), bin_field(cb, 5), live);
+      add_scale_pairs<6, T, kVec>(acc, gbin, ginv, base[3] - 6 * i0[3], i0[3],
+                                  bin_field(rw, 7), bin_field(cb, 6), bin_field(cb, 7), live);
     } else {
-      T v[V];
+      add_scale_bins<1, T, kVec>(acc, gbin, base[0] - i0[0], p.inv, i0[0], bin_field(rw, 1),
+                                 bin_field(cb, 0), bin_field(cb, 1), live);
+      add_scale_bins<2, T, kVec>(acc, gbin, base[1] - 2 * i0[1], p.inv, i0[1],
+                                 bin_field(rw, 3), bin_field(cb, 2), bin_field(cb, 3), live);
+      add_scale_bins<3, T, kVec>(acc, gbin, base[2] - 3 * i0[2], p.inv, i0[2],
+                                 bin_field(rw, 5), bin_field(cb, 4), bin_field(cb, 5), live);
+      add_scale_bins<6, T, kVec>(acc, gbin, base[3] - 6 * i0[3], p.inv, i0[3],
+                                 bin_field(rw, 7), bin_field(cb, 6), bin_field(cb, 7), live);
+    }
+    cell[b][tx] = pack16(acc);
+  }
+  __syncthreads();
+
+  const int w = cbs[p.nc];
+  const size_t row_stride = (size_t)w * c;
+  const int rows = r_hi - r_lo;
+  T* base_px = dx + ((size_t)n * p.rows + (r_lo - p.row0)) * row_stride + ch0;
+  int b = 0;
+  for (int x = ty; x < w; x += kWarps) {
+    while (cbs[b + 1] <= x) ++b;
+    const uint4 v = cell[b][tx];
+    T* px = base_px + (size_t)x * c;
+    if constexpr (kVec) {
+      if (!live[0]) continue;
+      for (int r = 0; r < rows; ++r)
+        *reinterpret_cast<uint4*>(px + (size_t)r * row_stride) = v;
+    } else {
+      // The V elements in pack16's order: channel ch0 + 32 k is element k.
+      const unsigned u4[4] = {v.x, v.y, v.z, v.w};
+      Bits e[V];
 #pragma unroll
-      for (int k = 0; k < V; ++k) store_from_f32(&v[k], acc[k]);
-      for (int pp = 0; pp < pixels; ++pp) {
-        T* px = base + (size_t)(pp / cw) * row_stride + (size_t)(pp % cw) * c + ch0;
+      for (int k = 0; k < V; ++k) {
+        if constexpr (sizeof(T) == 2)
+          e[k] = (Bits)(u4[k / 2] >> (16 * (k % 2)));
+        else
+          e[k] = (Bits)u4[k];
+      }
+      for (int r = 0; r < rows; ++r) {
+        Bits* row = reinterpret_cast<Bits*>(px + (size_t)r * row_stride);
 #pragma unroll
         for (int k = 0; k < V; ++k)
-          if (live[k]) px[k * 32] = v[k];
+          if (live[k]) row[k * 32] = e[k];
       }
     }
   }
-  if constexpr (kVec) {
-    // Shared memory stays until the bulk copies have read it.
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-  }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 132;  // an H100's; it only sizes grids
-  return sms;
+// Blocks of ppm_pool_backward_kernel<T, vec> the card runs at once,
+// with the most shared memory a block takes (31 KB).
+template <typename T>
+long long resident_blocks(bool vec) {
+  static const long long blocks[2] = {
+      [] {
+        int b = 2;
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &b, ppm_pool_backward_kernel<T, false>, 32 * kWarps, 61 * 512 + 62 * 4);
+        return (long long)std::max(b, 1) * sm_count();
+      }(),
+      [] {
+        int b = 4;
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &b, ppm_pool_backward_kernel<T, true>, 32 * kWarps, 61 * 512 + 62 * 4);
+        return (long long)std::max(b, 1) * sm_count();
+      }()};
+  return blocks[vec];
 }
 
-// Rows [row0, row0 + hb) of the input gradient of an (n, h, w, c) map
-// into dx, (n, hb, w, c); the dense backward is the band [0, h).
+// Rows [row0, row0 + hb) of the input gradient of an (n, h, w, c) map into
+// dx, (n, hb, w, c), with ppm_pool_backward_kernel.
 template <typename T>
 cudaError_t launch_backward(const void* g1, const void* g2, const void* g3,
                             const void* g6, void* dx, int n, int h, int w, int c,
@@ -775,7 +909,8 @@ cudaError_t launch_backward(const void* g1, const void* g2, const void* g3,
         p.inv.v[first_bin(sc) + i * sc + j] = (float)(1.0 / area);
       }
   }
-  // The map's row segments cut at the band's edges: the band's own.
+  // The map's row segments cut at the band's edges: the band's own (a
+  // clipped segment's rows lie in the bins its whole segment lies in).
   int full[kCands];
   const int nfull = host_bounds(h, full);
   p.row0 = row0;
@@ -788,37 +923,52 @@ cudaError_t launch_backward(const void* g1, const void* g2, const void* g3,
       if (full[k] >= row0 + hb) break;
     }
   p.nc = host_bounds(w, p.cb);
-  // A unit is a whole row segment; halve the units' rows while the grid
-  // has fewer than two blocks an SM or a unit more than 128 KB (a block
-  // stores at a few tens of GB/s), then split the column segments into
-  // parts while it still has too few.
-  const long long tiles = (c + kTile - 1) / kTile, sms = sm_count();
+  auto holding = [](int x, int v) {
+    return bins_holding<1>(x, v, 0) | bins_holding<2>(x, v, 1) | bins_holding<3>(x, v, 2) |
+           bins_holding<6>(x, v, 3);
+  };
+  // The most bins a unit stages: those of its segment's row bins.
+  p.slots = 0;
+  for (int a = 0; a < p.nr; ++a) {
+    p.rbin[a] = holding(p.rb[a], h);
+    p.slots = std::max(p.slots, bin_field(p.rbin[a], 1) + 2 * bin_field(p.rbin[a], 3) +
+                                    3 * bin_field(p.rbin[a], 5) + 6 * bin_field(p.rbin[a], 7));
+  }
+  for (int b = 0; b < p.nc; ++b) p.cbin[b] = holding(p.cb[b], w);
+  p.pairs = h >= 6 && w >= 6;
+  // A unit is one row, and more rows while the grid holds more blocks than
+  // the card runs at once (one wave: a block's time is mostly the latency
+  // before its first store) and a unit stores at most 128 KB (whole
+  // segments of bench.py's dense (8, 56, 76) map, 640 blocks, left a tail
+  // and were slower: PERF.md, section 6).
+  const long long tiles = (c + kTile - 1) / kTile, wave = resident_blocks<T>(vec);
   auto units = [&](int chunk) {
     int u = 0;
     for (int a = 0; a < p.nr; ++a) u += (p.rb[a + 1] - p.rb[a] + chunk - 1) / chunk;
     return u;
   };
   p.chunk = 1;
-  for (int a = 0; a < p.nr; ++a) p.chunk = std::max(p.chunk, p.rb[a + 1] - p.rb[a]);
-  while (p.chunk > 1 && (n * tiles * units(p.chunk) < 2 * sms ||
-                         (size_t)p.chunk * w * kTile * sizeof(T) > 128 * 1024))
-    p.chunk = (p.chunk + 1) / 2;
-  const long long blocks = n * tiles * units(p.chunk);
-  p.parts = (int)std::min<long long>(p.nc, std::max(1LL, (2 * sms + blocks - 1) / blocks));
+  while (p.chunk < hb && n * tiles * units(p.chunk) > wave &&
+         (size_t)(p.chunk + 1) * w * kTile * sizeof(T) <= 128 * 1024)
+    ++p.chunk;
   p.unit0[0] = 0;
   for (int a = 0; a < p.nr; ++a)
     p.unit0[a + 1] = p.unit0[a] + (p.rb[a + 1] - p.rb[a] + p.chunk - 1) / p.chunk;
   if ((long long)n * p.unit0[p.nr] >= INT_MAX || tiles > 65535) return cudaErrorInvalidValue;
-  dim3 grid(n * p.unit0[p.nr], p.parts, (unsigned)tiles);
+  dim3 grid(n * p.unit0[p.nr], (unsigned)tiles);
+  // At most 31 KB: the staged bins and cell vectors, the reciprocal areas
+  // and the column boundaries.
+  const size_t smem =
+      (size_t)(p.slots + p.nc) * 32 * sizeof(uint4) + (p.slots + p.nc + 1) * sizeof(float);
   const T *p1 = static_cast<const T*>(g1), *p2 = static_cast<const T*>(g2),
           *p3 = static_cast<const T*>(g3), *p6 = static_cast<const T*>(g6);
   T* out = static_cast<T*>(dx);
   if (vec)
-    ppm_pool_backward_kernel<T, true><<<grid, dim3(32, kWarps), 0, stream>>>(
-        p1, p2, p3, p6, out, p, h, w, c);
+    ppm_pool_backward_kernel<T, true><<<grid, dim3(32, kWarps), smem, stream>>>(
+        p1, p2, p3, p6, out, p, c);
   else
-    ppm_pool_backward_kernel<T, false><<<grid, dim3(32, kWarps), 0, stream>>>(
-        p1, p2, p3, p6, out, p, h, w, c);
+    ppm_pool_backward_kernel<T, false><<<grid, dim3(32, kWarps), smem, stream>>>(
+        p1, p2, p3, p6, out, p, c);
   return cudaGetLastError();
 }
 

@@ -30,8 +30,8 @@ sum the rows that have arrived, so nothing but the sums is allocated.
 
 Band backward (``pyramid_pool_band_backward``): rows ``[row0, row0 + hb)``
 of the dense form's input gradient, for training with each image's height
-split in bands (``cli.train TPU.spatial``). It is the backward kernel with
-its stores clipped to the band, so a band's rows are bit for bit the dense
+split in bands (``cli.train TPU.spatial``). Its kernel is the backward's,
+which writes any band of rows, so a band's rows are bit for bit the dense
 backward's: the same terms in the same order, with the reciprocal areas of
 the whole map rounded once on the host. ``pyramid_pool_bands`` is the
 differentiable banded pool of training, one ``torch.autograd.Function``
@@ -52,11 +52,13 @@ exported program launches the kernel (``serving.py``). The dense operator's
 gradient (``register_autograd``) is the backward operator, a second
 hand-written kernel (``ppm_pool_backward_kernel`` in the same source), which
 writes ``grad_x[n, h, w, c] = sum over the scales s and the bins (i, j) of s
-that hold (h, w) of g_s[n, i, j, c] / area_s(i, j)``. The gradient is
-constant over each of the forward's cells, so a block stages the 50 small
-bin gradients once, forms the cell vectors of one row segment from them and
-stores each to every pixel of its cell with TMA bulk stores: bound by the
-bytes of ``grad_x`` written. The JAX
+that hold (h, w) of g_s[n, i, j, c] / area_s(i, j)`` for any band of rows;
+the dense backward is the band ``[0, H)``. The gradient is constant over
+each of the forward's cells, so a block takes rows of one row segment: it
+stages only the bin gradients those rows lie in, forms the segment's cell
+vectors from them and stores each column's vector to the rows with
+coalesced 16-byte stores. Bound by the bytes of ``grad_x`` written, and at
+the split step's small bands by the latency before the first store. The JAX
 package has no backward for its Pallas kernel; it differentiates XLA's
 integral-image pool (``semseg_tpu/ops/pool.py:55``), which computes the
 same sum. The pad-aware form is inference only (the JAX package trains on

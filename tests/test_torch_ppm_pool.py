@@ -366,3 +366,83 @@ def test_valid_form_with_grad_raises_on_card():
     v = torch.tensor([[8, 8], [5, 6]], dtype=torch.int32, device="cuda")
     with pytest.raises(RuntimeError, match="no gradient"):
         ppm_pool.pyramid_pool(x, valid_hw=v)
+
+
+def _band_cuts(h, bands, base):
+    """Row cuts of an ``h``-row map at stride ``base`` split in ``bands``
+    bands, as ``cli.train TPU.spatial`` cuts its canvas."""
+    from semseg_tpu_torch.parallel.spatial import BandPlan
+
+    return [0] + [b for _, b in BandPlan(base * h, bands, base).rows(base)]
+
+
+def _band_grads(shape, dtype, seed, unaligned=False):
+    n, _, _, c = shape
+    grads = []
+    for s in SCALES:
+        flat = torch.from_numpy(_input((n * s * s * c + 1,), seed=seed + s)).to("cuda", dtype)
+        grads.append((flat[1:] if unaligned else flat[:-1]).view(n, s, s, c))
+    return grads
+
+
+def _check_band_rows(grads, hw, cuts, dtype):
+    """Each band of ``cuts`` bit-equal to the dense backward kernel's rows,
+    repeated bit for bit, and within ``_backward_tol`` of the plain version."""
+    lib = ppm_pool._lib()
+    dense = ppm_pool.launch_backward(lib, grads, hw)
+    for a, b in zip(cuts, cuts[1:]):
+        out = ppm_pool.launch_band_backward(lib, grads, a, b - a, hw)
+        assert out.shape == (grads[0].shape[0], b - a, hw[1], grads[0].shape[3])
+        assert torch.equal(out, dense[:, a:b]), (a, b)
+        assert torch.equal(out, ppm_pool.launch_band_backward(lib, grads, a, b - a, hw)), (a, b)
+        ref = ppm_pool.pyramid_pool_band_backward_plain(grads, a, b - a, hw)
+        torch.testing.assert_close(out.float(), ref.float(), **_backward_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bands", [2, 4])
+@pytest.mark.parametrize("shape,base", [((2, 40, 56, 2048), 8), ((2, 14, 19, 2048), 32)],
+                         ids=["flagship-2x40x56", "upernet-2x14x19"])
+def test_band_backward_kernel_is_the_dense_rows(shape, base, bands, dtype):
+    """The split step's own maps (the flagship's batch-2 conv5 at stride 8,
+    UPerNet's at stride 32), cut as ``cli.train TPU.spatial`` cuts them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    grads = _band_grads(shape, dtype, seed=30)
+    _check_band_rows(grads, shape[1:3], _band_cuts(shape[1], bands, base), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,unaligned", [((2, 13, 17, 250), False),
+                                             ((2, 40, 56, 2048), True), ((1, 4, 5, 256), False)],
+                         ids=["odd-C", "unaligned", "4x5"])
+def test_band_backward_kernel_one_row_bands_and_scalar_path(shape, unaligned, dtype):
+    """Bands of one row each; odd C and gradients one element past a 16-byte
+    boundary take the scalar loads and stores; on a 4x5 map a row lies in
+    two bins of a scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    grads = _band_grads(shape, dtype, seed=40, unaligned=unaligned)
+    assert (grads[0].data_ptr() % 16 != 0) == unaligned
+    _check_band_rows(grads, shape[1:3], list(range(shape[1] + 1)), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_band_backward_op_counts_its_launch(dtype):
+    """The registered operator launches the kernel once a call, and agrees
+    with a direct launch bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    grads = _band_grads((2, 40, 56, 2048), dtype, seed=50)
+    before = ppm_pool.BAND_BACKWARD_LAUNCHES
+    out = torch.ops.semseg_tpu_torch.pyramid_pool_band_backward(grads, 10, 10, 40, 56)
+    torch.cuda.synchronize()
+    assert ppm_pool.BAND_BACKWARD_LAUNCHES == before + 1
+    assert torch.equal(out, ppm_pool.launch_band_backward(ppm_pool._lib(), grads, 10, 10,
+                                                          (40, 56)))
