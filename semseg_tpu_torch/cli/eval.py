@@ -29,9 +29,13 @@ here, as in JAX (the trainer reads it).
 
 ``--profile DIR`` writes a ``torch.profiler`` trace of the eval loop (CPU
 and CUDA activities) to ``DIR/eval_trace.json`` (Chrome trace format),
-stopped once whether the loop ends or raises. The engines run in threads
-of their own, so the trace holds their kernels but not their CPU-side
-operators.
+stopped once whether the loop ends or raises. The first engine runs on
+the calling thread, so the trace holds its operators and the spans of
+``utils.spans``: the batched engines' phases ``semseg::eval.plan``,
+``.stage``, ``.wait``, ``.model``, ``.epilogue``, ``.fetch`` and
+``semseg::levels``, and each ``semseg::bn`` and ``semseg::conv``. With
+``--devices`` > 1 the others run in threads of their own, which the
+profiler does not follow: the trace holds their kernels only.
 """
 
 from __future__ import annotations
@@ -241,11 +245,14 @@ def evaluate(engines, loader, cfg, logger, visualize=False, vis_dir=None):
             errors.append(e)
 
     threads = [threading.Thread(target=guarded, args=(e,), name=f"eval-engine-{i}")
-               for i, e in enumerate(engines)]
+               for i, e in enumerate(engines[1:], 1)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join()
+    try:
+        run_engine(engines[0])  # on this thread, which ``--profile`` records
+    finally:
+        for t in threads:
+            t.join()
     if errors:
         raise errors[0]
 

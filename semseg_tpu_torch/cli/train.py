@@ -32,7 +32,10 @@ package's data-parallel step over it (``parallel.train_step``). Only rank 0
 logs and writes checkpoints; every rank reads one on resume.
 
 Runs on the card unless ``--device cpu``. ``--profile DIR`` writes a
-``torch.profiler`` trace of rank 0's first steps. ``TPU.remat`` recomputes
+``torch.profiler`` trace of rank 0's first steps, with the spans of
+``utils.spans``: ``semseg::data.wait`` (waiting for the next batch),
+``semseg::forward``, ``semseg::backward``, ``semseg::optimizer``, and each
+``semseg::bn`` (its forward) and ``semseg::conv``. ``TPU.remat`` recomputes
 each ResNet block's activations in the backward
 (``models.resnet.ResBlock``); ``TPU.train_fast_decode`` decodes training
 JPEGs at a reduced scale (``data.TrainDataset``).

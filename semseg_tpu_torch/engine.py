@@ -27,6 +27,16 @@
 Host arrays go up in one coalesced copy per chunk or window (pinned, on a
 side stream for a card, see ``upload.Upload``). Canvases are (H, W, num_class), as in the JAX
 package; model tensors are NCHW and channels_last in memory.
+
+The batched engines' phases run in spans (``utils.spans``) on the calling
+thread: ``semseg::eval.plan`` (level plans, windows, bucket grouping and
+packing, the schedule), ``semseg::eval.stage`` (input put on the device
+from the calling thread), ``semseg::eval.wait`` (the chunk loop waiting on
+the uploader thread), ``semseg::eval.model`` (the network on a chunk),
+``semseg::levels`` (the levels derived on the device),
+``semseg::eval.epilogue`` (a chunk's canvases, resizes and softmaxes, and
+each finished image's metrics or argmax) and ``semseg::eval.fetch`` (the
+results to the host).
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from semseg_tpu_torch.ops.resize_dynamic import pil_resize_matrix, resize_matrix
 from semseg_tpu_torch.models.segmentation import band_base, banded_logits, check_banded
 from semseg_tpu_torch.parallel.spatial import BandPlan, Bands, gather, split_rows
 from semseg_tpu_torch.upload import Upload
+from semseg_tpu_torch.utils.spans import span
 
 
 def _fetch_dtype(dtype) -> torch.dtype:
@@ -135,9 +146,10 @@ class InferenceEngine:
         bin each sample's valid extent ``hw`` ((N, 2) int32) only. Rounded
         to ``fetch_dtype`` only when they go to the host (``to_fetch``); the
         on-device epilogue keeps float32."""
-        x = normalize_u8_masked(img_u8, hw[:, 0], hw[:, 1])
-        out = self.model(x.permute(0, 3, 1, 2), valid_hw=hw)
-        return out.to(self.fetch_dtype) if to_fetch else out
+        with span("semseg::eval.model"):
+            x = normalize_u8_masked(img_u8, hw[:, 0], hw[:, 1])
+            out = self.model(x.permute(0, 3, 1, 2), valid_hw=hw)
+            return out.to(self.fetch_dtype) if to_fetch else out
 
     def _logits_spatial(self, img_u8: torch.Tensor, hw: torch.Tensor) -> torch.Tensor:
         """``_logits_raw_fn`` with the level's height split across
@@ -297,6 +309,12 @@ class BatchedInferenceEngine(InferenceEngine):
                 groups.setdefault(self._bucket_key(h, w), []).append((i, arr, h, w))
         return self._pack_groups(groups)
 
+    def _window_groups(self, items, window):
+        """The levels of a window's items grouped by bucket, packed."""
+        in_window = set(window)
+        return self._group_by_bucket(
+            [items[i] if i in in_window else [] for i in range(len(items))])
+
     def _pack_groups(self, groups):
         """Fold under-filled bucket groups into LARGER buckets when the
         batch-fill gain beats the extra padded area.
@@ -375,9 +393,10 @@ class BatchedInferenceEngine(InferenceEngine):
         ``staged``: the chunk's upload from ``_stage_host_chunk``; None =
         stage it here.
         """
-        if staged is None:
-            staged = self._stage_host_chunk(key, padded_chunk)
-        img, hw = staged.get()
+        with span("semseg::eval.stage"):
+            if staged is None:
+                staged = self._stage_host_chunk(key, padded_chunk)
+            img, hw = staged.get()
         logits = self._logits_raw_fn(img, hw, to_fetch)
         return logits, [(h, w) for (_, _, h, w) in padded_chunk]
 
@@ -409,7 +428,8 @@ class BatchedInferenceEngine(InferenceEngine):
         accs: dict = {}
         remaining = dict(n_levels)
         out: dict = {}
-        schedule = self._schedule(groups)
+        with span("semseg::eval.plan"):
+            schedule = self._schedule(groups)
 
         staged_q: queue.Queue = queue.Queue(maxsize=2)
         # If the consumer dies, the uploader must not stay blocked in put()
@@ -438,26 +458,28 @@ class BatchedInferenceEngine(InferenceEngine):
         uploader.start()
         try:
             for key, chunk, padded in schedule:
-                staged = staged_q.get()
+                with span("semseg::eval.wait"):
+                    staged = staged_q.get()
                 if isinstance(staged, BaseException):
                     raise staged
                 logits, hws = forward_chunk(key, padded, staged)
-                for j, task in enumerate(chunk):
-                    item_idx = task[0]
-                    h, w = hws[j]
-                    H, W = seg_sizes[item_idx]
-                    if item_idx not in accs:
-                        # Canvas at the lattice shape: its padding is never
-                        # written and is void in the label.
-                        accs[item_idx] = torch.zeros(
-                            (*self._bucket_key(H, W), self.num_class),
-                            dtype=torch.float32, device=self.device,
-                        )
-                    self._accum_fn(accs[item_idx], logits[j],
-                                   -(-h // os_), -(-w // os_), H, W)
-                    remaining[item_idx] -= 1
-                    if remaining[item_idx] == 0:
-                        out[item_idx] = finalize(item_idx, accs.pop(item_idx))
+                with span("semseg::eval.epilogue"):
+                    for j, task in enumerate(chunk):
+                        item_idx = task[0]
+                        h, w = hws[j]
+                        H, W = seg_sizes[item_idx]
+                        if item_idx not in accs:
+                            # Canvas at the lattice shape: its padding is
+                            # never written and is void in the label.
+                            accs[item_idx] = torch.zeros(
+                                (*self._bucket_key(H, W), self.num_class),
+                                dtype=torch.float32, device=self.device,
+                            )
+                        self._accum_fn(accs[item_idx], logits[j],
+                                       -(-h // os_), -(-w // os_), H, W)
+                        remaining[item_idx] -= 1
+                        if remaining[item_idx] == 0:
+                            out[item_idx] = finalize(item_idx, accs.pop(item_idx))
         finally:
             stop.set()
             while True:  # drop staged buffers
@@ -473,13 +495,13 @@ class BatchedInferenceEngine(InferenceEngine):
         window's levels by bucket, forward and accumulate, finalize per
         item. ``prepare_window(window)`` runs before the window's forwards."""
         out: dict = {}
-        for window in self._canvas_windows(seg_sizes, range(len(items))):
+        with span("semseg::eval.plan"):
+            windows = self._canvas_windows(seg_sizes, range(len(items)))
+        for window in windows:
             if prepare_window is not None:
                 prepare_window(window)
-            in_window = set(window)
-            groups = self._group_by_bucket(
-                [items[i] if i in in_window else [] for i in range(len(items))]
-            )
+            with span("semseg::eval.plan"):
+                groups = self._window_groups(items, window)
             out.update(self._accumulate_on_device(
                 seg_sizes, groups, {i: len(items[i]) for i in window},
                 self._forward_host_chunk, finalize, self._stage_host_chunk,
@@ -513,9 +535,10 @@ class BatchedInferenceEngine(InferenceEngine):
         dev_labels: dict = {}
 
         def prepare_window(window):
-            host = [self._void_label_canvas(labels[i], *seg_sizes[i]) for i in window]
-            for i, d in zip(window, Upload.of(host, self.device).send().get()):
-                dev_labels[i] = d
+            with span("semseg::eval.stage"):
+                host = [self._void_label_canvas(labels[i], *seg_sizes[i]) for i in window]
+                for i, d in zip(window, Upload.of(host, self.device).send().get()):
+                    dev_labels[i] = d
 
         def finalize(item_idx, acc):
             return self._metrics_fn(acc, dev_labels.pop(item_idx))
@@ -524,7 +547,8 @@ class BatchedInferenceEngine(InferenceEngine):
 
     def _fetch_packed_metrics(self, out, n_items):
         """Stack every per-image metric vector and fetch in one copy."""
-        packed = torch.stack([out[i] for i in range(n_items)]).cpu().numpy()
+        with span("semseg::eval.fetch"):
+            packed = torch.stack([out[i] for i in range(n_items)]).cpu().numpy()
         C = self.num_class
         return [(row[0], row[1], row[2:2 + C], row[2 + C:2 + 2 * C]) for row in packed]
 
@@ -537,7 +561,8 @@ class BatchedInferenceEngine(InferenceEngine):
             items, seg_sizes,
             lambda i, acc: self._argmax_fn(acc)[:seg_sizes[i][0], :seg_sizes[i][1]],
         )
-        flat = torch.cat([preds[i].reshape(-1) for i in range(len(items))]).cpu().numpy()
+        with span("semseg::eval.fetch"):
+            flat = torch.cat([preds[i].reshape(-1) for i in range(len(items))]).cpu().numpy()
         res, lo = [], 0
         for H, W in seg_sizes:
             res.append(flat[lo:lo + H * W].reshape(H, W).astype(np.int64))
@@ -563,18 +588,22 @@ class BatchedInferenceEngine(InferenceEngine):
 
         # Host canvases, windowed by the same budget as the device path.
         res = [None] * n_items
-        for window in self._canvas_windows(seg_sizes, range(n_items)):
-            in_window = set(window)
-            groups = self._group_by_bucket(
-                [items[i] if i in in_window else [] for i in range(n_items)]
-            )
+        with span("semseg::eval.plan"):
+            windows = self._canvas_windows(seg_sizes, range(n_items))
+        for window in windows:
+            with span("semseg::eval.plan"):
+                schedule = self._schedule(self._window_groups(items, window))
             accs = {i: torch.zeros((self.num_class, *seg_sizes[i])) for i in window}
-            for key, chunk, padded in self._schedule(groups):
-                logits = self._forward_host_chunk(key, padded, to_fetch=True)[0].cpu()
-                for row, (i, _, h, w) in zip(logits, chunk):
-                    accs[i] += self._postprocess(row, h, w, seg_sizes[i])
-            for i in window:
-                res[i] = (accs[i] / len(items[i])).argmax(0).numpy()
+            for key, chunk, padded in schedule:
+                logits = self._forward_host_chunk(key, padded, to_fetch=True)[0]
+                with span("semseg::eval.fetch"):
+                    logits = logits.cpu()
+                with span("semseg::eval.epilogue"):
+                    for row, (i, _, h, w) in zip(logits, chunk):
+                        accs[i] += self._postprocess(row, h, w, seg_sizes[i])
+            with span("semseg::eval.epilogue"):
+                for i in window:
+                    res[i] = (accs[i] / len(items[i])).argmax(0).numpy()
         return res
 
 
@@ -643,9 +672,8 @@ class DevicePyramidEngine(BatchedInferenceEngine):
     def _levels(self, canvases, ohw, thw, lh: int, lw: int) -> torch.Tensor:
         """(B, Hc, Wc, 3) uint8 originals with true sizes ``ohw`` → (B, lh,
         lw, 3) normalized float32 levels of sizes ``thw``, zero beyond them
-        ((B, 2) int32 on the device). Named ``semseg::levels`` for the
-        profiler."""
-        with torch.profiler.record_function("semseg::levels"):
+        ((B, 2) int32 on the device), in the span ``semseg::levels``."""
+        with span("semseg::levels"):
             _, hc, wc, _ = canvases.shape
             m_h = pil_resize_matrix(lh, hc, thw[:, 0], ohw[:, 0], device=canvases.device)
             m_w = pil_resize_matrix(lw, wc, thw[:, 1], ohw[:, 1], device=canvases.device)
@@ -658,21 +686,22 @@ class DevicePyramidEngine(BatchedInferenceEngine):
     def _upload_window(self, window, originals, labels, seg_sizes) -> Upload:
         """Start one window's upload: each original zero-padded to the
         lattice, then each void-label canvas, in one pinned buffer."""
-        specs = []
-        for i in window:
-            h, w = originals[i].shape[:2]
-            if not self.fits(h, w):
-                raise ValueError(f"original {h}x{w} exceeds the canvas {self.ori_canvas}")
-            specs.append(((_round_up(h, self.ori_step), _round_up(w, self.ori_step), 3),
-                          np.uint8))
-        specs += [(self._bucket_key(*seg_sizes[i]), np.uint8) for i in window]
-        up = Upload(specs, self.device)
-        for dst, i in zip(up.arrays, window):
-            h, w = originals[i].shape[:2]
-            dst[:h, :w] = originals[i]
-        for dst, i in zip(up.arrays[len(window):], window):
-            dst[...] = self._void_label_canvas(labels[i], *seg_sizes[i])
-        return up.send(self._upload_stream)
+        with span("semseg::eval.stage"):
+            specs = []
+            for i in window:
+                h, w = originals[i].shape[:2]
+                if not self.fits(h, w):
+                    raise ValueError(f"original {h}x{w} exceeds the canvas {self.ori_canvas}")
+                specs.append(((_round_up(h, self.ori_step), _round_up(w, self.ori_step), 3),
+                              np.uint8))
+            specs += [(self._bucket_key(*seg_sizes[i]), np.uint8) for i in window]
+            up = Upload(specs, self.device)
+            for dst, i in zip(up.arrays, window):
+                h, w = originals[i].shape[:2]
+                dst[:h, :w] = originals[i]
+            for dst, i in zip(up.arrays[len(window):], window):
+                dst[...] = self._void_label_canvas(labels[i], *seg_sizes[i])
+            return up.send(self._upload_stream)
 
     @torch.inference_mode()
     def batched_metrics_from_originals(self, originals, labels):
@@ -687,11 +716,12 @@ class DevicePyramidEngine(BatchedInferenceEngine):
             raise ValueError("uint8 label transport needs num_class < 255")
         if not originals:
             return []
-        seg_sizes = [lab.shape for lab in labels]
-        plans = [self.level_plan(*ori.shape[:2]) for ori in originals]
-        if not all(plans):
-            raise ValueError("every image needs >= 1 level")
-        windows = self._windows(seg_sizes)
+        with span("semseg::eval.plan"):
+            seg_sizes = [lab.shape for lab in labels]
+            plans = [self.level_plan(*ori.shape[:2]) for ori in originals]
+            if not all(plans):
+                raise ValueError("every image needs >= 1 level")
+            windows = self._windows(seg_sizes)
         oris: dict = {}
         dev_labels: dict = {}
 
@@ -704,16 +734,19 @@ class DevicePyramidEngine(BatchedInferenceEngine):
             return up.send(self._upload_stream)
 
         def forward_chunk(key, padded, staged):
-            ohw, thw = staged.get()
-            hc = max(oris[i].shape[0] for i, _, _ in padded)
-            wc = max(oris[i].shape[1] for i, _, _ in padded)
-            canvases = torch.zeros((len(padded), hc, wc, 3), dtype=torch.uint8,
-                                   device=self.device)
-            for j, (i, _, _) in enumerate(padded):
-                canvases[j, :oris[i].shape[0], :oris[i].shape[1]] = oris[i]
+            with span("semseg::eval.stage"):
+                ohw, thw = staged.get()
+                hc = max(oris[i].shape[0] for i, _, _ in padded)
+                wc = max(oris[i].shape[1] for i, _, _ in padded)
+                canvases = torch.zeros((len(padded), hc, wc, 3), dtype=torch.uint8,
+                                       device=self.device)
+                for j, (i, _, _) in enumerate(padded):
+                    canvases[j, :oris[i].shape[0], :oris[i].shape[1]] = oris[i]
             # The forward pools over each task's extent; logits stay f32.
             x = self._levels(canvases, ohw, thw, *key).permute(0, 3, 1, 2)
-            logits = self.model(x.contiguous(memory_format=torch.channels_last), valid_hw=thw)
+            with span("semseg::eval.model"):
+                logits = self.model(x.contiguous(memory_format=torch.channels_last),
+                                    valid_hw=thw)
             return logits, [(th, tw) for _, th, tw in padded]
 
         def finalize(item_idx, acc):
@@ -724,13 +757,16 @@ class DevicePyramidEngine(BatchedInferenceEngine):
         for k, window in enumerate(windows):
             # The compute stream waits for this window's copy; the next
             # window's copy is issued before this window's forwards.
-            views = upload.get()
-            for i, ori, lab in zip(window, views[:len(window)], views[len(window):]):
-                oris[i], dev_labels[i] = ori, lab
+            with span("semseg::eval.stage"):
+                views = upload.get()
+                for i, ori, lab in zip(window, views[:len(window)], views[len(window):]):
+                    oris[i], dev_labels[i] = ori, lab
             if k + 1 < len(windows):
                 upload = self._upload_window(windows[k + 1], originals, labels, seg_sizes)
+            with span("semseg::eval.plan"):
+                groups = self._level_groups(window, plans)
             out.update(self._accumulate_on_device(
-                seg_sizes, self._level_groups(window, plans), {i: len(plans[i]) for i in window},
+                seg_sizes, groups, {i: len(plans[i]) for i in window},
                 forward_chunk, finalize, stage_chunk,
             ))
             for i in window:

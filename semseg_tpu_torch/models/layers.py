@@ -30,6 +30,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from semseg_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train_bands, replaying
+from semseg_tpu_torch.utils.spans import span
 
 
 _recompute = threading.local()
@@ -110,11 +111,13 @@ class Dropout2d(nn.Module):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` whose f32 parameters are cast to the input's dtype."""
+    """``nn.Conv2d`` whose f32 parameters are cast to the input's dtype;
+    the casts and the convolution run in the span ``semseg::conv``."""
 
     def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        with span("semseg::conv"):
+            bias = None if self.bias is None else self.bias.to(x.dtype)
+            return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -141,6 +144,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     process group the recompute does not all-reduce the statistics again:
     it takes the totals its forward all-reduced (``ops.norm.replaying``),
     so a backward issues the same collectives with remat as without.
+
+    The forward runs in the span ``semseg::bn``; a training BN's backward,
+    which autograd launches, runs outside it.
     """
 
     ROWWISE = True  # in eval (see Dropout2d)
@@ -160,22 +166,23 @@ class BatchNorm2d(nn.BatchNorm2d):
         return self.forward_bands([x])[0]
 
     def forward_bands(self, parts):
-        if not self.training:
-            return [batch_norm_inference(
-                x, *(t.to(x.device, non_blocking=True) for t in (
-                    self.weight, self.bias, self.running_mean, self.running_var)),
-                eps=self.eps) for x in parts]
-        ys, mean, var, it = batch_norm_train_bands(
-            parts, self.weight, self.bias, self.running_mean, self.running_var,
-            self._running_iter, eps=self.eps, momentum=self.momentum,
-            group=self.process_group,
-        )
-        if in_recompute():
+        with span("semseg::bn"):
+            if not self.training:
+                return [batch_norm_inference(
+                    x, *(t.to(x.device, non_blocking=True) for t in (
+                        self.weight, self.bias, self.running_mean, self.running_var)),
+                    eps=self.eps) for x in parts]
+            ys, mean, var, it = batch_norm_train_bands(
+                parts, self.weight, self.bias, self.running_mean, self.running_var,
+                self._running_iter, eps=self.eps, momentum=self.momentum,
+                group=self.process_group,
+            )
+            if in_recompute():
+                return ys
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(var)
+            self._running_iter.copy_(it)
             return ys
-        self.running_mean.copy_(mean)
-        self.running_var.copy_(var)
-        self._running_iter.copy_(it)
-        return ys
 
 
 _ACTS = {"relu": F.relu, "relu6": F.relu6}

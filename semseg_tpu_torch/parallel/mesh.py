@@ -10,7 +10,9 @@ waits on each batch's event before using it, and the batch's memory is
 marked as used there, as the eval engines' uploader does
 (``upload.Upload``). Abandoning the generator (an error in the step loop,
 an early exit) stops the thread and drains the queue, so no uploaded
-batches stay pinned on the card.
+batches stay pinned on the card. The consumer's wait for a batch, and its
+stream's wait on the upload, run in the span ``semseg::data.wait`` on the
+consumer's thread.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from semseg_tpu_torch.upload import Upload
+from semseg_tpu_torch.utils.spans import span
 
 
 def device_prefetch(iterator, device, depth: int = 2, put=None):
@@ -66,13 +69,15 @@ def device_prefetch(iterator, device, depth: int = 2, put=None):
     def gen():
         try:
             while True:
-                item = q.get()
-                if item is None:
-                    if errors:
-                        raise errors[0]
-                    return
-                keys, up = item
-                yield dict(zip(keys, up.get()))
+                with span("semseg::data.wait"):
+                    item = q.get()
+                    if item is None:
+                        if errors:
+                            raise errors[0]
+                        return
+                    keys, up = item
+                    batch = dict(zip(keys, up.get()))
+                yield batch  # the consumer's step runs outside the span
         finally:
             stop.set()
             while True:

@@ -51,9 +51,9 @@ buffers, as DDP's construction makes them.
 
 Dropout draws from a CPU generator seeded from ``TRAIN.seed`` and the step
 (``dropout_generator``), so a run repeats, and the card draws what the CPU
-draws. The step's forward, backward and update run inside the profiler
-ranges ``semseg::forward``, ``semseg::backward`` (with DDP's gradient
-all-reduce) and ``semseg::optimizer``.
+draws. The step's forward, backward and update run inside the spans
+(``utils.spans``) ``semseg::forward``, ``semseg::backward`` (with DDP's
+gradient all-reduce) and ``semseg::optimizer``.
 """
 
 from __future__ import annotations
@@ -67,11 +67,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
-from torch.profiler import record_function
 
 from semseg_tpu_torch.models.layers import Dropout2d
 from semseg_tpu_torch.models.segmentation import check_banded, set_process_group
 from semseg_tpu_torch.ops.preproc import normalize_u8_masked
+from semseg_tpu_torch.utils.spans import span
 
 
 @dataclass
@@ -197,9 +197,9 @@ def train_step(state: TrainState, batch: dict, generator: Optional[torch.Generat
     for i, mb in enumerate(micro):
         no_sync = state.ddp is not None and i + 1 < len(micro)
         with state.ddp.no_sync() if no_sync else contextlib.nullcontext():
-            with record_function("semseg::forward"):
+            with span("semseg::forward"):
                 loss, acc = model(_images(mb), seg_label=mb["seg_label"], **split)
-            with record_function("semseg::backward"):
+            with span("semseg::backward"):
                 (loss * state.world).backward()
         loss_sum = loss_sum + loss.detach()
         acc_sum = acc_sum + acc.detach()
@@ -208,9 +208,9 @@ def train_step(state: TrainState, batch: dict, generator: Optional[torch.Generat
         if p.grad is None:  # unused this step: a zero gradient, as in JAX
             p.grad = torch.zeros_like(p)
     if state.group is not None:
-        with record_function("semseg::backward"):
+        with span("semseg::backward"):
             _average_over_ranks([p.grad for p in params], state.group, state.world)
-    with record_function("semseg::optimizer"):
+    with span("semseg::optimizer"):
         if grad_accum > 1:
             for p in params:
                 p.grad.div_(grad_accum)

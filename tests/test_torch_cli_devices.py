@@ -17,8 +17,9 @@
   conftest's 8 CPU devices against 8 cards; ``--multihost`` with
   ``TPU.spatial`` raises, ``TPU.remat`` with it is taken (its model's
   ``spatial`` forward checkpoints the ResNet blocks).
-* ``cli.eval --profile DIR`` writes a Chrome trace of the eval loop, when
-  the loop ends and when it raises.
+* ``cli.eval --profile DIR`` writes a Chrome trace of the eval loop, with
+  the engine's and the layers' spans, when the loop ends and when it
+  raises.
 """
 
 import json
@@ -177,8 +178,9 @@ def test_spatial_refuses_multihost_and_takes_remat(monkeypatch):
 
 def test_eval_profile_writes_a_trace_on_either_exit(train_set, tmp_path, monkeypatch):  # noqa: F811
     """The trace is written when the loop ends and when it raises (the
-    engines' kernels land in it on the card, ``chip_smoke.py`` phase 11;
-    their CPU-side operators run in threads the profiler does not follow)."""
+    engines' kernels land in it on the card, ``chip_smoke.py`` phase 11);
+    one engine runs on the profiled thread, so the trace holds the
+    engine's and the layers' spans."""
     root, odgt = train_set
     ckpt = str(tmp_path / "ckpt")
     os.makedirs(ckpt)
@@ -192,7 +194,10 @@ def test_eval_profile_writes_a_trace_on_either_exit(train_set, tmp_path, monkeyp
     miou, _, _, raw = eval_cli.main(["--profile", str(tmp_path / "ok"), *argv])
     assert raw["pix_count"] > 0
     with open(tmp_path / "ok" / "eval_trace.json") as f:
-        assert isinstance(json.load(f)["traceEvents"], list)
+        events = json.load(f)["traceEvents"]
+    assert isinstance(events, list)
+    assert {"semseg::eval.plan", "semseg::eval.model", "semseg::eval.epilogue",
+            "semseg::eval.fetch", "semseg::bn", "semseg::conv"} <= {e.get("name") for e in events}
 
     def fail(*args, **kwargs):
         raise RuntimeError("an engine failed")
