@@ -28,6 +28,17 @@ PyTorch built for CUDA. In order:
    one: other, this, this, other (the backward too, after holding it bit
    for bit to the other build at every phase-8 check shape, and in phase
    12 the band form);
+   then the BN kernel (``ops/kernels/bn_act.py``, its own library): its
+   registers and spills, ``torch.equal`` to the plain chain at the
+   flagship's eval maps (``BN_ACT_CHECKS``, channels_last, bf16 and f32,
+   with and without a residual, each activation; under a gradient, the
+   operator's backward against autograd's through the plain chain), NCHW
+   and float64 maps refused, its time warm
+   and L2-cold with the profiler's device time beside its bound (map and
+   residual read once, output written once, over 3.35 TB/s) and the plain
+   chain's (``BN_ACT_TIMED``), and the host time of one eval BN call with
+   tracing off: the module with the kernel, the plain chain as the module
+   ran it before, and the registered operator through the dispatcher;
 5. the main paths at full width: the flagship resnet50dilated + ppm_deepsup
    with seeded random weights saved as a reference ``.pth`` pair, through
    ``cli.test`` (3 images, bucketed per-image engine), ``cli.eval --exact``,
@@ -36,11 +47,13 @@ PyTorch built for CUDA. In order:
    the card from the originals) over the same 9 labelled images, all 5
    scales; then every other shipped config (the zoo) through the default
    ``cli.eval`` (3 labelled images) and ``cli.test`` (1 image) at full
-   width and its own scales. The launch counts are read per path: the
+   width and its own scales, every BN of its ``cli.eval`` a BN kernel
+   launch. The launch counts are read per path: the
    pad-aware form once per level in ``cli.test`` and once per scheduled
    chunk in the default and device-pyramid ``cli.eval`` (none in the C1
    configs), the dense form once per level in ``cli.eval --exact``; the
-   three flagship eval paths must count the same labelled pixels;
+   three flagship eval paths must count the same labelled pixels, and every
+   BN of theirs must launch the BN kernel;
 6. steady state of the batched and exact engines on those images, and at
    bench.py's headline settings (batch 8, packed, step 8) the
    device-pyramid engine beside the batched engine, with the host PIL
@@ -64,14 +77,18 @@ PyTorch built for CUDA. In order:
    losses come every run); one float32 step (TF32 off) on the card against
    the CPU from the same weights and batch (loss, the gradients of layer4's
    last conv, a PPM branch conv and ``conv_last``, the BN statistics: a
-   missing pool gradient moves layer4's by O(1)); and steady state at
+   missing pool gradient moves layer4's by O(1)); one ``TRAIN.fix_bn``
+   step (every BN in eval mode under a gradient) with each BN call one BN
+   kernel launch, bit-equal to the same step with the plain chain under
+   the BNs (deterministic algorithms); and steady state at
    bench.py's train shape (batch 8, 448x608) with peak memory at batch 2
    and 8 and a ``torch.profiler`` step broken down by kernel;
 9. serving (run after the zoo phase): ``tools.export_serving`` exports the
    flagship (bf16) as a bundle of two buckets (448x608, 608x448) at batch
    4 on the card, with its export time and file sizes (each program file
    at most 5% of ``params.pt``); each program against the eager forward
-   (argmax agreement) with one dense launch per program call; an f32
+   (argmax agreement) with one dense launch per program call and as many
+   BN kernel launches as the eager forward makes; an f32
    bundle exported on the card against the same bundle exported on the CPU
    (TF32 off); then ``cli.serve`` on 127.0.0.1 over the bundle and over
    the live engine (5 scales, batch 8, packed): ``/healthz``, then 16 JPEG
@@ -611,12 +628,13 @@ def time_kernel(ppm_pool, torch, card: str, compare=None) -> dict:
     return out
 
 
-def print_build(ppm_pool):
-    """Registers and spills of every kernel from the build's ptxas output;
-    raises, after printing them all, if any spills."""
+def print_build(kernels_module, name="ppm_pool"):
+    """Registers and spills of every kernel of library ``name`` (built from
+    ``kernels_module.SOURCES``) from the build's ptxas output; raises,
+    after printing them all, if any spills."""
     from semseg_tpu_torch.ops.kernels._build import build_log
 
-    log = build_log("ppm_pool", ppm_pool.SOURCES)
+    log = build_log(name, kernels_module.SOURCES)
     kernel, spills, kernels, spilled = None, None, 0, []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -630,7 +648,7 @@ def print_build(ppm_pool):
             if spills is None:
                 raise RuntimeError(f"no spill line in the ptxas output for {kernel}")
             kernels += 1
-            short = re.sub(r"^_ZN\w*?_ppm_pool_cu_\w{8}\d+", "", kernel)[:60]
+            short = re.sub(rf"^_ZN\w*?_{name}_cu_\w{{8}}\d+", "", kernel)[:60]
             smem = re.search(r"(\d+) bytes smem", line)
             print(f"[build] ptxas: {short}: {m.group(1)} registers, "
                   f"{smem.group(1) if smem else 0} bytes shared memory, spill stores/loads "
@@ -642,6 +660,232 @@ def print_build(ppm_pool):
         raise RuntimeError("the build log holds no ptxas report")
     if spilled:
         raise RuntimeError(f"kernels spill registers: {spilled}")
+
+
+# The BN kernel (``ops/kernels/bn_act.py``): the flagship's eval maps, each
+# (shape, residual, act); then odd C and the PPM's 1x1 grids.
+BN_ACT_KERNEL = "bn_act_"  # bn_act_nhwc_kernel
+BN_ACT_TIMED = [((8, 2048, 75, 100), True, "relu"),  # a block's last BN
+                ((8, 256, 150, 200), False, "relu"),  # layer1's bn1 / bn2
+                ((8, 512, 75, 100), False, None)]  # the PPM's last ConvBN before ReLU
+BN_ACT_CHECKS = BN_ACT_TIMED + [((8, 64, 300, 400), False, "relu"),
+                                ((2, 36, 17, 23), True, "relu6"),
+                                ((8, 2048, 1, 1), False, "relu")]
+# Under a gradient (``TRAIN.fix_bn``): the kernel forward, the operator's
+# backward.
+BN_ACT_GRAD_CHECKS = [((2, 256, 38, 50), True, "relu"), ((2, 36, 17, 23), False, "relu6")]
+BN_ACT_HOST_CALLS = 2000  # per timing, after 200 warm-ups; median of 5
+
+
+def _bn_params(torch, c, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(c, generator=g, device="cuda") * 1.5,
+            torch.randn(c, generator=g, device="cuda"),
+            torch.randn(c, generator=g, device="cuda") * 0.5,
+            torch.rand(c, generator=g, device="cuda") * 2 + 0.05]
+
+
+def check_bn_act(bn_act, torch):
+    """The kernel ``torch.equal`` to its plain version (the parent's chain
+    of ops) at the flagship's maps and the other paths, bf16 and f32; two
+    launches bit-equal; every call counted as a launch. Under a gradient
+    the kernel forward, and the operator's backward equal to autograd's
+    through the plain chain. NCHW and float64 maps refused. Returns the
+    cases checked and the largest |kernel - plain| over them."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    checked, max_err = 0, 0.0
+
+    def leaves(shape, dtype, residual, grad=False):
+        x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        r = None if not residual else torch.randn(
+            shape, generator=g, device="cuda").to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        params = _bn_params(torch, shape[1], checked)
+        if grad:
+            x.requires_grad_()
+            params[0].requires_grad_()
+            params[1].requires_grad_()
+            if r is not None:
+                r.requires_grad_()
+        return x, params, r
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+    for shape, residual, act in BN_ACT_CHECKS:
+        for dt in ("bfloat16", "float32"):
+            x, params, r = leaves(shape, getattr(torch, dt), residual)
+            before = bn_act.LAUNCHES
+            with torch.inference_mode():
+                got = bn_act.bn_act(x, *params, 1e-5, r, act)
+                again = bn_act.bn_act(x, *params, 1e-5, r, act)
+                want = bn_act.bn_act_plain(x, *params, 1e-5, r, act)
+            torch.cuda.synchronize()
+            if bn_act.LAUNCHES != before + 2:
+                raise RuntimeError(f"bn_act {shape}: {bn_act.LAUNCHES - before} launches "
+                                   "counted for 2 calls")
+            if not torch.equal(got, again):
+                raise RuntimeError(f"bn_act {shape} {dt}: two launches differ")
+            max_err = max(max_err, err(got, want))
+            if not torch.equal(got, want):
+                diff = (got.float() - want.float()).abs()
+                raise RuntimeError(f"bn_act {shape} {dt} residual={residual} act={act}: "
+                                   f"{int((diff > 0).sum())} elements differ from the plain "
+                                   f"chain, largest {diff.max().item()}")
+            checked += 1
+            print(f"[bn_act] check {shape} {dt} residual={residual} act={act}: torch.equal "
+                  "to the plain chain, two launches bit-equal", flush=True)
+    for shape, residual, act in BN_ACT_GRAD_CHECKS:
+        for dt in ("bfloat16", "float32"):
+            x, params, r = leaves(shape, getattr(torch, dt), residual, grad=True)
+            inputs = [t for t in (x, params[0], params[1], r) if t is not None]
+            before = bn_act.LAUNCHES
+            got = bn_act.bn_act(x, *params, 1e-5, r, act)
+            torch.cuda.synchronize()
+            if bn_act.LAUNCHES != before + 1:
+                raise RuntimeError(f"bn_act {shape} under a gradient: "
+                                   f"{bn_act.LAUNCHES - before} launches")
+            dy = torch.randn(got.shape, generator=g, device="cuda").to(got.dtype)
+            got = [got.detach(), *torch.autograd.grad(got, inputs, dy)]
+            want = bn_act.bn_act_plain(x, *params, 1e-5, r, act)
+            want = [want.detach(), *torch.autograd.grad(want, inputs, dy)]
+            for what, a, b in zip(("output", "x", "weight", "bias", "residual"), got, want):
+                max_err = max(max_err, err(a, b))
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"bn_act {shape} {dt} residual={residual} act={act} "
+                                       f"under a gradient: the {what} differs from the plain "
+                                       f"chain's by up to {err(a, b)}")
+            checked += 1
+            print(f"[bn_act] check {shape} {dt} residual={residual} act={act} under a "
+                  "gradient: one launch, the output and the gradients of the map, the affine "
+                  "and the residual torch.equal to autograd's through the plain chain",
+                  flush=True)
+    params = _bn_params(torch, 16, 0)
+    for what, x in (("NCHW", torch.zeros(2, 16, 3, 4, device="cuda")),
+                    ("float64", torch.zeros(2, 16, 3, 4, device="cuda", dtype=torch.float64)
+                     .contiguous(memory_format=torch.channels_last))):
+        try:
+            bn_act.bn_act(x, *params, 1e-5, None, "relu")
+        except ValueError:
+            print(f"[bn_act] {what} map on the card: refused (ValueError)", flush=True)
+        else:
+            raise RuntimeError(f"bn_act took a {what} map on the card")
+    return checked, max_err
+
+
+def bn_act_bound_ms(shape, residual, element_size):
+    """Least time on an H100 SXM: the map (and the residual) read once and
+    the output written once, over 3.35 TB/s (a few operations an element:
+    far below the ridge)."""
+    n, c, h, w = shape
+    return (3 if residual else 2) * n * c * h * w * element_size / HBM_BYTES_PER_S * 1e3
+
+
+def time_bn_act(bn_act, torch, card) -> dict:
+    """Per timed case and dtype: (kernel ms warm, cold, plain ms cold,
+    bound ms, device us)."""
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    out = {}
+    for shape, residual, act in BN_ACT_TIMED:
+        params = _bn_params(torch, shape[1], 0)
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            x = torch.randn(shape, device="cuda").to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            r = torch.randn_like(x) if residual else None
+            with torch.inference_mode():
+                def kernel():
+                    return bn_act.bn_act(x, *params, 1e-5, r, act)
+
+                def plain():
+                    return bn_act.bn_act_plain(x, *params, 1e-5, r, act)
+
+                warm = _median_ms(kernel, torch)
+                cold = _median_ms(kernel, torch, flush)
+                plain_cold = _median_ms(plain, torch, flush)
+                device = _device_us(kernel, torch, flush, (BN_ACT_KERNEL,),
+                                    f"bn_act {shape} {dt}")
+            bound = bn_act_bound_ms(shape, residual, x.element_size())
+            out[(shape, dt)] = (warm, cold, plain_cold, bound, device)
+            print(f"[bn_act] time {shape} {dt} residual={residual} act={act}: kernel "
+                  f"{warm:.4f} ms warm, {cold:.4f} ms cold, device {_us(device)} cold; bound "
+                  f"{bound:.4f} ms (bytes read once and written once), share of bound "
+                  f"{bound / cold:.3f} cold, {bound / warm:.3f} warm"
+                  + ("" if device is None else f", {bound * 1e3 / device:.3f} device")
+                  + f"; plain chain {plain_cold:.4f} ms cold (median of 50; card: {card})",
+                  flush=True)
+            del x, r
+    return out
+
+
+def bn_act_host_us(bn_act, torch, card) -> dict:
+    """Host time (us) of one eval BN call with tracing off, on a small map
+    (the card keeps pace): the module with the kernel, the parent's module
+    (the plain chain: four ``.to(device)`` of its parameters, the affine
+    rebuilt, two casts, then ``F.relu``, in the same span), and, without
+    the module, the wrapper's direct launch and the registered operator
+    through the dispatcher; without and with a residual. Median of 5 rounds, each timing ``BN_ACT_HOST_CALLS`` calls of
+    every form in turn (the host's speed drifts within a call)."""
+    import torch.nn.functional as F
+
+    from semseg_tpu_torch.models.layers import BatchNorm2d
+    from semseg_tpu_torch.ops.norm import batch_norm_inference
+    from semseg_tpu_torch.utils.spans import span
+
+    bn = BatchNorm2d(64).to("cuda").eval()
+    x = torch.randn(1, 64, 8, 8, device="cuda").to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    r = torch.randn_like(x)
+
+    def parent(x, residual=None):
+        with span("semseg::bn"):
+            y = batch_norm_inference(x, *(t.to(x.device, non_blocking=True) for t in (
+                bn.weight, bn.bias, bn.running_mean, bn.running_var)), eps=bn.eps)
+        return F.relu(y if residual is None else y + residual)
+
+    params = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    calls = {
+        "change": lambda: bn(x, act="relu"),
+        "parent": lambda: parent(x),
+        "direct": lambda: bn_act.bn_act(x, *params, bn.eps, None, "relu"),
+        "operator": lambda: torch.ops.semseg_tpu_torch.bn_act(x, *params, bn.eps, None, "relu"),
+        "change+residual": lambda: bn(x, act="relu", residual=r),
+        "parent+residual": lambda: parent(x, r),
+    }
+    runs = {name: [] for name in calls}
+    with torch.inference_mode():
+        for fn in calls.values():
+            for _ in range(200):
+                fn()
+        torch.cuda.synchronize()
+        for _ in range(5):
+            for name, fn in calls.items():
+                tic = time.perf_counter()
+                for _ in range(BN_ACT_HOST_CALLS):
+                    fn()
+                runs[name].append((time.perf_counter() - tic) / BN_ACT_HOST_CALLS * 1e6)
+                torch.cuda.synchronize()
+    out = {name: sorted(r)[2] for name, r in runs.items()}
+    print("[bn_act] host time of one eval BN call, tracing off (us, median of 5 rounds of "
+          f"{BN_ACT_HOST_CALLS}): " + ", ".join(f"{k} {v:.2f}" for k, v in out.items())
+          + f" (card: {card})", flush=True)
+    return out
+
+
+def bn_act_phase(torch, card) -> dict:
+    """The BN kernel: built (registers, spills), checked, timed, and one
+    BN call's host time."""
+    from semseg_tpu_torch.ops.kernels import bn_act
+
+    tic = time.perf_counter()
+    bn_act._lib()
+    print(f"[build] bn_act.cu built/loaded in {time.perf_counter() - tic:.2f} s", flush=True)
+    print_build(bn_act, "bn_act")
+    checked, max_err = check_bn_act(bn_act, torch)
+    times = time_bn_act(bn_act, torch, card)
+    host = bn_act_host_us(bn_act, torch, card)
+    return dict(checked=checked, max_err=max_err, times=times, host=host)
 
 
 def _write_images(root, shapes, rng, labels=False):
@@ -812,7 +1056,9 @@ def main_path(work, torch, ppm_pool):
     chunks = expected_chunks(cfg, val_dir, odgt)
     dp_chunks = expected_dp_chunks(cfg, EVAL_IMAGES)
     launches = {"dense": 0, "valid": 0}
+    from semseg_tpu_torch.ops.kernels import bn_act
 
+    bn_start = bn_act.LAUNCHES
     _, test_s, dense, valid = _run_path("cli.test", lambda: test_cli.main(
         ["--imgs", test_dir, "--cfg", CFG, "DIR", ckpt, "TEST.result", out_dir]),
         ppm_pool, torch)
@@ -833,8 +1079,13 @@ def main_path(work, torch, ppm_pool):
         ("cli.eval", [], (0, chunks)),
         ("cli.eval --device-pyramid", ["--device-pyramid"], (0, dp_chunks)),
     ):
+        bn_before = bn_act.LAUNCHES
         (miou, acc, _, raw), wall_s, dense, valid = _run_path(name, lambda: eval_cli.main(
             ["--cfg", CFG, *flags, "DIR", ckpt, *data]), ppm_pool, torch)
+        bn_launches = bn_act.LAUNCHES - bn_before
+        if bn_launches == 0:
+            raise RuntimeError(f"{name}: no BN kernel launch")
+        print(f"[main] {name}: {bn_launches} BN kernel launches", flush=True)
         if (dense, valid) != want:
             raise RuntimeError(f"{name} launched dense {dense} / valid {valid} times, "
                                f"expected {want[0]} / {want[1]}")
@@ -854,6 +1105,7 @@ def main_path(work, torch, ppm_pool):
     if len(set(pix.values())) != 1:
         raise RuntimeError(f"the eval paths counted different labelled pixels: {pix}")
     print(f"[main] all three eval paths counted {pix['cli.eval']:.0f} labelled pixels", flush=True)
+    launches["bn"] = bn_act.LAUNCHES - bn_start
     return ckpt, val_dir, odgt, launches
 
 
@@ -876,6 +1128,7 @@ def zoo_phase(work, torch, ppm_pool):
     import numpy as np
 
     from semseg_tpu_torch.cli import eval as eval_cli, test as test_cli
+    from semseg_tpu_torch.ops.kernels import bn_act
 
     val_dir = os.path.join(work, "zoo_val")
     odgt = _write_val_set(val_dir, ZOO_IMAGES, seed=4)
@@ -884,6 +1137,7 @@ def zoo_phase(work, torch, ppm_pool):
     _write_images(test_dir, ZOO_IMAGES[:1], np.random.RandomState(5))
     data = ["DATASET.root_dataset", val_dir, "DATASET.list_val", odgt]
     launches, ckpts = {"dense": 0, "valid": 0}, {}
+    bn_total = bn_act.LAUNCHES
     for name in ZOO_CONFIGS:
         path = os.path.join(HERE, "config", name)
         cfg = _cfg(path=path)
@@ -897,9 +1151,12 @@ def zoo_phase(work, torch, ppm_pool):
         want_eval = (0, expected_chunks(cfg, val_dir, odgt, flagship=False) if pooled else 0)
         want_test = (0, n_scales if pooled else 0)
         tag = f"{cfg.MODEL.arch_encoder} + {cfg.MODEL.arch_decoder}"
+        bn_start = bn_act.LAUNCHES
         (miou, acc, _, raw), eval_s, dense, valid = _run_path(
             f"zoo {tag}: cli.eval", lambda: eval_cli.main(
                 ["--cfg", path, "DIR", ckpt, *data]), ppm_pool, torch)
+        if bn_act.LAUNCHES == bn_start:
+            raise RuntimeError(f"{name} cli.eval: no BN kernel launch")
         if (dense, valid) != want_eval:
             raise RuntimeError(f"{name} cli.eval launched dense {dense} / valid {valid} times, "
                                f"expected {want_eval[0]} / {want_eval[1]}")
@@ -923,6 +1180,7 @@ def zoo_phase(work, torch, ppm_pool):
               f"{want_eval[1]} (= chunks scheduled); cli.test pool launches {want_test[1]}; wall "
               f"{eval_s:.1f} s eval + {test_s:.1f} s test (first runs, model build included), "
               f"{save_s:.1f} s to build and save the random .pth pair", flush=True)
+    launches["bn"] = bn_act.LAUNCHES - bn_total
     return launches, ckpts
 
 
@@ -1541,6 +1799,67 @@ def train_card_vs_cpu(torch, ppm_pool):
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def fix_bn_step(torch, card):
+    """``TRAIN.fix_bn``: one bf16 training step of the flagship at batch 2
+    with every BN in eval mode under a gradient. Each BN call is one kernel
+    launch (its forward; the backward is the operator's plain ops), and
+    under deterministic algorithms the step is bit-equal (loss, every
+    gradient, the updated weights, the running statistics) to the same step
+    with the plain chain under the BNs. Returns the kernel launches."""
+    import numpy as np
+
+    from semseg_tpu_torch.models import layers
+    from semseg_tpu_torch.models.layers import BatchNorm2d
+    from semseg_tpu_torch.ops.kernels import bn_act
+    from semseg_tpu_torch.parallel import train_step
+
+    cfg = _cfg("TRAIN.fix_bn", "True")
+    rng = np.random.RandomState(13)
+    n, h, w = 2, 320, 448
+    host = {"img_data": rng.randn(n, h, w, 3).astype(np.float32),
+            "seg_label": rng.randint(-1, 150, (n, h // 8, w // 8)).astype(np.int32)}
+    runs = {}
+    for name in ("kernel", "plain"):
+        state = _train_model(torch, cfg, CARD)
+        calls = [0]
+        hooks = [m.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+                 for m in state.model.modules() if isinstance(m, BatchNorm2d)]
+        if not hooks or any(m.training for m in state.model.modules()
+                            if isinstance(m, BatchNorm2d)):
+            raise RuntimeError("TRAIN.fix_bn: the model's BNs are not all in eval mode")
+        batch = {k: torch.from_numpy(v).to(CARD) for k, v in host.items()}
+        before = bn_act.LAUNCHES
+        saved = layers.bn_act
+        if name == "plain":
+            layers.bn_act = bn_act.bn_act_plain
+        try:
+            with _deterministic(torch):
+                loss = float(train_step(state, batch)["loss"])
+        finally:
+            layers.bn_act = saved
+        for hook in hooks:
+            hook.remove()
+        runs[name] = (state, loss, calls[0], bn_act.LAUNCHES - before)
+    (kernel, loss, calls, launched), (plain, plain_loss, plain_calls, plain_launched) = \
+        runs["kernel"], runs["plain"]
+    if launched != calls or plain_launched or calls != plain_calls:
+        raise RuntimeError(f"TRAIN.fix_bn step: {calls} BN calls, {launched} kernel launches "
+                           f"(the plain step: {plain_calls} calls, {plain_launched} launches)")
+    differ = [k for (k, a), b in zip(kernel.model.named_parameters(),
+                                     plain.model.parameters())
+              if not (torch.equal(a.grad, b.grad) and torch.equal(a, b))]
+    differ += [k for (k, a), b in zip(kernel.model.named_buffers(), plain.model.buffers())
+               if not torch.equal(a, b)]
+    print(f"[train] TRAIN.fix_bn, one bf16 step {n}x{h}x{w} under deterministic algorithms: "
+          f"{calls} BN calls, each one kernel launch; loss {loss:.6f} against the plain chain's "
+          f"{plain_loss:.6f}; {len(differ)} parameters, gradients or buffers differ "
+          f"(card: {card})", flush=True)
+    if differ or loss != plain_loss:
+        raise RuntimeError(f"TRAIN.fix_bn step: the kernel's differs from the plain chain's in "
+                           f"{differ[:5]} (loss {loss} against {plain_loss})")
+    return launched
+
+
 def train_steady_state(torch, card):
     """bench.py's train step on the card: random f32 images and labels
     already on the device, the flagship in bf16; s/step over 3 x 10 steps
@@ -1854,6 +2173,7 @@ def serving_phase(work, ckpt, torch, ppm_pool, card):
     from semseg_tpu_torch.checkpoint import resolve_reference_checkpoint
     from semseg_tpu_torch.cli import serve as serve_cli
     from semseg_tpu_torch.models import ModelBuilder
+    from semseg_tpu_torch.ops.kernels import bn_act
     from semseg_tpu_torch.ops.preproc import normalize_255
     from semseg_tpu_torch.ops.resize import resize_bilinear
     from semseg_tpu_torch.serving import Predictor
@@ -1886,17 +2206,24 @@ def serving_phase(work, ckpt, torch, ppm_pool, card):
     for b, h, w in sorted(pred.programs):
         imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for _ in range(b)]
         ppm_pool.LAUNCHES = 0
+        bn_start = bn_act.LAUNCHES
         got = pred.predict_batch(imgs)
         torch.cuda.synchronize()
         if ppm_pool.LAUNCHES != 1:
             raise RuntimeError(f"program {b}x{h}x{w}: {ppm_pool.LAUNCHES} dense launches")
+        bn_program = bn_act.LAUNCHES - bn_start
         with torch.no_grad():
             x = normalize_255(torch.from_numpy(np.stack(imgs)).to("cuda", torch.float32))
             logits = model(x.permute(0, 3, 1, 2))
             want = resize_bilinear(logits.to(torch.float32), (h, w)).argmax(dim=1).cpu().numpy()
+        bn_eager = bn_act.LAUNCHES - bn_start - bn_program
+        if bn_program == 0 or bn_program != bn_eager:
+            raise RuntimeError(f"program {b}x{h}x{w}: {bn_program} BN kernel launches, the eager "
+                               f"forward {bn_eager}")
         shares = [float((g == wm).mean()) for g, wm in zip(got, want)]
         print(f"[serve] program {b}x{h}x{w} against the eager forward (bf16): argmax "
-              f"agreement {min(shares):.6f} (limit {AGREE}), 1 dense launch per call", flush=True)
+              f"agreement {min(shares):.6f} (limit {AGREE}), 1 dense launch and {bn_program} "
+              "BN kernel launches per call (the eager forward's)", flush=True)
         if min(shares) < AGREE:
             raise RuntimeError(f"program {b}x{h}x{w} disagrees with the eager forward: {shares}")
     del model
@@ -1909,6 +2236,7 @@ def serving_phase(work, ckpt, torch, ppm_pool, card):
 
     bodies, decoded = _serve_requests()
     launches = {"dense": 0, "valid": 0}
+    bn_start = bn_act.LAUNCHES
 
     lone = [pred.predict(d) for d in decoded]
     record = _SlotRecord(pred, decoded)
@@ -1949,6 +2277,9 @@ def serving_phase(work, ckpt, torch, ppm_pool, card):
     if not codes[503] or set(codes) - {200, 503}:
         raise RuntimeError(f"overload: statuses {dict(codes)}; expected 503s and no 500")
     launches["valid"] += valid
+    # The served traffic's BN launches (the three servers; the live ones
+    # warm up their shapes first).
+    launches["bn"] = bn_act.LAUNCHES - bn_start
     print(f"[serve] phase 9 took {time.perf_counter() - start:.1f} s", flush=True)
     return launches
 
@@ -4196,6 +4527,7 @@ def main(argv=None) -> int:
         check_backward_against(ppm_pool, torch, compare)
     times = time_kernel(ppm_pool, torch, card, compare)
     backward_times = time_backward(ppm_pool, torch, card, compare)
+    bn = bn_act_phase(torch, card)
 
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
@@ -4215,6 +4547,7 @@ def main(argv=None) -> int:
             launches[form] += train_launches[form]
         loss_falls(torch, train_root, train_odgt, card)
         train_card_vs_cpu(torch, ppm_pool)
+        fix_bn_launches = fix_bn_step(torch, card)
         train_steady_state(torch, card)
         dp_launches = data_parallel_phase(work, torch, ppm_pool, card, ckpt, val_dir, odgt,
                                           train_root, train_odgt)
@@ -4256,6 +4589,8 @@ def main(argv=None) -> int:
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s from the build on",
           flush=True)
+    bn_warm, bn_cold, bn_plain, bn_bound, bn_device = bn["times"][
+        (BN_ACT_TIMED[0][0], "bfloat16")]
     entry = dict(route="cuda", source="semseg_tpu_torch/csrc/ppm_pool.cu")
     print(json.dumps({"kernels": [
         {"name": "pyramid_pool", **entry, "replaces": "semseg_tpu/ops/pallas/ppm_pool.py:40",
@@ -4293,6 +4628,16 @@ def main(argv=None) -> int:
          "library_ms": None,
          # UPerNet's batch-2 training conv5 at 448x608 (phase 14).
          "at_2x14x19x2048": timed(zoo_backward_times[((2, 14, 19, 2048), 2, "bfloat16")])},
+        # No TPU kernel: the JAX package leaves batch norm to XLA. bf16, a
+        # block's last BN (residual and ReLU) at the flagship's batch-8 map.
+        {"name": "bn_act", "route": "cuda", "source": "semseg_tpu_torch/csrc/bn_act.cu",
+         "replaces": None,
+         "launches": (launches["bn"] + zoo_launches["bn"] + serve_launches["bn"]
+                      + fix_bn_launches),
+         "max_abs_err": bn["max_err"], "ms": bn_warm, "cold_ms": bn_cold, "plain_ms": bn_plain,
+         "bound_ms": bn_bound, "bound_by": "bytes",
+         "device_ms": None if bn_device is None else bn_device / 1e3, "library_ms": None,
+         "host_us": bn["host"]},
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

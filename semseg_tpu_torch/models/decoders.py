@@ -77,7 +77,7 @@ from semseg_tpu_torch.parallel.spatial import (
     cat_bands,
     run_banded,
 )
-from .layers import BatchNorm2d, Conv2d, ConvBN, Dropout2d, _Act
+from .layers import BatchNorm2d, Conv2d, ConvBN, Dropout2d, Sequential, _Act
 
 
 def _finish(x, seg_size):
@@ -158,7 +158,7 @@ class PPM(nn.Module):
         # Slot 0 names the branch's grid; the pooling itself runs fused for
         # all branches in forward().
         self.ppm = nn.ModuleList(
-            nn.Sequential(
+            Sequential(
                 nn.AdaptiveAvgPool2d(scale),
                 Conv2d(fc_dim, 512, 1, bias=False),
                 BatchNorm2d(512),
@@ -166,7 +166,7 @@ class PPM(nn.Module):
             )
             for scale in SCALES
         )
-        self.conv_last = nn.Sequential(
+        self.conv_last = Sequential(
             *ConvBN(fc_dim + len(SCALES) * 512, 512, 3),
             Dropout2d(0.1),
             Conv2d(512, num_class, 1),

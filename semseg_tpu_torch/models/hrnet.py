@@ -143,8 +143,8 @@ class HRNetV2(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
+        x = self.bn1(self.conv1(x), act="relu")
+        x = self.bn2(self.conv2(x), act="relu")
         xs = [self.layer1(x)]
         for s in (2, 3, 4):
             trans = getattr(self, f"transition{s - 1}")
@@ -188,8 +188,8 @@ def banded_features(encoders: Sequence[HRNetV2], x: Bands):
         return [getattr(e, name) for e in encoders]
 
     x = x.map(lambda p: p.to(encoders[0].dtype))
-    x = band_apply(each("bn1"), band_conv(each("conv1"), x)).map(F.relu)
-    x = band_apply(each("bn2"), band_conv(each("conv2"), x)).map(F.relu)
+    x = band_apply(each("bn1"), band_conv(each("conv1"), x), act="relu")
+    x = band_apply(each("bn2"), band_conv(each("conv2"), x), act="relu")
     for blocks in zip(*each("layer1")):
         x = banded_block(blocks, x)
     xs = [x]

@@ -27,9 +27,9 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 from torch import nn
-import torch.nn.functional as F
 
-from semseg_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train_bands, replaying
+from semseg_tpu_torch.ops.kernels.bn_act import ACTS, apply_act, bn_act
+from semseg_tpu_torch.ops.norm import batch_norm_train_bands, replaying
 from semseg_tpu_torch.utils.spans import span
 
 
@@ -145,7 +145,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     it takes the totals its forward all-reduced (``ops.norm.replaying``),
     so a backward issues the same collectives with remat as without.
 
-    The forward runs in the span ``semseg::bn``; a training BN's backward,
+    ``act`` (None, ``"relu"``, ``"relu6"``) and ``residual`` are what
+    follows the BN at its call site: ``act(bn(x) + residual)``. In eval
+    that is one call of ``ops.kernels.bn_act`` (on the card one kernel
+    launch, bit-equal to the plain ops). In training the BN is
+    ``batch_norm_train_bands`` as without them, and the add and the
+    activation are plain ops after it.
+
+    The forward runs in the span ``semseg::bn`` (in eval with the add and
+    the activation, in training without them); a training BN's backward,
     which autograd launches, runs outside it.
     """
 
@@ -162,38 +170,35 @@ class BatchNorm2d(nn.BatchNorm2d):
             state_dict[key] = torch.ones(1)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
-    def forward(self, x):
-        return self.forward_bands([x])[0]
+    def forward(self, x, act: Optional[str] = None, residual: Optional[torch.Tensor] = None):
+        return self.forward_bands([x], act, None if residual is None else [residual])[0]
 
-    def forward_bands(self, parts):
+    def forward_bands(self, parts, act: Optional[str] = None,
+                      residuals: Optional[Sequence[torch.Tensor]] = None):
+        residuals = [None] * len(parts) if residuals is None else residuals
+        if not self.training:
+            with span("semseg::bn"):
+                return [bn_act(x, *self._params_on(x.device), self.eps, r, act)
+                        for x, r in zip(parts, residuals)]
         with span("semseg::bn"):
-            if not self.training:
-                return [batch_norm_inference(
-                    x, *(t.to(x.device, non_blocking=True) for t in (
-                        self.weight, self.bias, self.running_mean, self.running_var)),
-                    eps=self.eps) for x in parts]
             ys, mean, var, it = batch_norm_train_bands(
                 parts, self.weight, self.bias, self.running_mean, self.running_var,
                 self._running_iter, eps=self.eps, momentum=self.momentum,
                 group=self.process_group,
             )
-            if in_recompute():
-                return ys
-            self.running_mean.copy_(mean)
-            self.running_var.copy_(var)
-            self._running_iter.copy_(it)
-            return ys
+            if not in_recompute():
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(var)
+                self._running_iter.copy_(it)
+        return [apply_act(y if r is None else y + r, act) for y, r in zip(ys, residuals)]
 
-
-_ACTS = {"relu": F.relu, "relu6": F.relu6}
-
-
-def apply_act(x, act: Optional[str]):
-    if act is None:
-        return x
-    if act not in _ACTS:
-        raise ValueError(f"unknown activation {act!r}")
-    return _ACTS[act](x)
+    def _params_on(self, device):
+        """The affine's parameters and running statistics on ``device``,
+        copied only where they lie elsewhere."""
+        params = (self.weight, self.bias, self.running_mean, self.running_var)
+        if self.weight.device == device:
+            return params
+        return tuple(t.to(device, non_blocking=True) for t in params)
 
 
 class _Act(nn.Module):
@@ -201,7 +206,7 @@ class _Act(nn.Module):
 
     def __init__(self, act: str):
         super().__init__()
-        if act not in _ACTS:
+        if act not in ACTS:
             raise ValueError(f"unknown activation {act!r}")
         self.act = act
 
@@ -215,8 +220,28 @@ class _Act(nn.Module):
         return self.act
 
 
-class ConvBN(nn.Sequential):
-    """Conv2d (no bias) → BatchNorm2d → optional activation.
+class Sequential(nn.Sequential):
+    """``nn.Sequential`` that hands an activation right after a
+    ``BatchNorm2d`` to that BN (``BatchNorm2d.forward``'s ``act``: one
+    kernel in eval). Its keys are ``nn.Sequential``'s."""
+
+    def forward(self, x):
+        mods = list(self._modules.values())
+        i = 0
+        while i < len(mods):
+            m = mods[i]
+            if isinstance(m, BatchNorm2d) and i + 1 < len(mods) and isinstance(mods[i + 1], _Act):
+                x = m(x, act=mods[i + 1].act)
+                i += 2
+            else:
+                x = m(x)
+                i += 1
+        return x
+
+
+class ConvBN(Sequential):
+    """Conv2d (no bias) → BatchNorm2d → optional activation, the activation
+    run by the BN (``Sequential``).
 
     A ``Sequential`` so that its keys are the reference's ``.0`` (conv) and
     ``.1`` (BN), as in ``conv3x3_bn_relu`` and the ResNet ``downsample``.

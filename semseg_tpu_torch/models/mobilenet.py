@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from semseg_tpu_torch.parallel.spatial import Bands, run_banded
-from .layers import BatchNorm2d, Conv2d, ConvBN, _Act
+from .layers import BatchNorm2d, Conv2d, ConvBN, Sequential, _Act
 
 # (expand_ratio t, channels c, repeats n, stride s)
 INVERTED_RESIDUAL_SETTING = (
@@ -68,7 +68,7 @@ class InvertedResidual(nn.Module):
             BatchNorm2d(hidden), _Act("relu6"),
             Conv2d(hidden, out_ch, 1, bias=False), BatchNorm2d(out_ch),
         ]
-        self.conv = nn.Sequential(*layers)
+        self.conv = Sequential(*layers)
 
     def forward(self, x):
         out = self.conv(x)

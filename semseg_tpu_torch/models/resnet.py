@@ -9,6 +9,10 @@
   gets dilation ``max(d // 2, 1)``, every other 3x3 conv of the stage gets
   ``d``; without ``dilate_scale`` the encoder has output stride 32.
 
+Each BN is handed what follows it (``layers.BatchNorm2d``'s ``act`` and
+``residual``): the stem's and a block's inner BNs their ReLU, a block's
+last BN the residual and ReLU, so in eval each is one kernel launch.
+
 With ``remat`` (``TPU.remat``; the JAX package wraps each ``ResBlock`` in
 ``nn.remat``) every residual block of a training forward runs under
 ``torch.utils.checkpoint`` (``checkpointed``): its activations are dropped
@@ -150,14 +154,14 @@ class ResBlock(nn.Module):
         return self._forward(x)
 
     def _forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn1(self.conv1(x), act="relu")
         if self.basic:
-            out = self.bn2(self.conv2(out))
+            out, last = self.conv2(out), self.bn2
         else:
-            out = F.relu(self.bn2(self.conv2(out)))
-            out = self.bn3(self.conv3(out))
+            out = self.bn2(self.conv2(out), act="relu")
+            out, last = self.conv3(out), self.bn3
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+        return last(out, act="relu", residual=residual)
 
 
 class ResNetEncoder(nn.Module):
@@ -212,9 +216,9 @@ class ResNetEncoder(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        x = F.relu(self.bn3(self.conv3(x)))
+        x = self.bn1(self.conv1(x), act="relu")
+        x = self.bn2(self.conv2(x), act="relu")
+        x = self.bn3(self.conv3(x), act="relu")
         x = max_pool2d(x, kernel_size=3, stride=2, padding=1)
         features = []
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
@@ -245,10 +249,12 @@ def _banded_block(blocks: Sequence[ResBlock], x: Bands) -> Bands:
     def each(name):
         return [getattr(b, name) for b in blocks]
 
-    out = band_apply(each("bn1"), band_conv(each("conv1"), x)).map(F.relu)
-    out = band_apply(each("bn2"), band_conv(each("conv2"), out))
-    if not blocks[0].basic:
-        out = band_apply(each("bn3"), band_conv(each("conv3"), out.map(F.relu)))
+    out = band_apply(each("bn1"), band_conv(each("conv1"), x), act="relu")
+    if blocks[0].basic:
+        out = band_apply(each("bn2"), band_conv(each("conv2"), out))
+    else:
+        out = band_apply(each("bn2"), band_conv(each("conv2"), out), act="relu")
+        out = band_apply(each("bn3"), band_conv(each("conv3"), out))
     residual = x if blocks[0].downsample is None else run_banded(each("downsample"), x)
     return out.zip(residual, lambda o, r: F.relu(o + r))
 
@@ -263,7 +269,7 @@ def banded_features(encoders: Sequence[ResNetEncoder], x: Bands):
     x = x.map(lambda p: p.to(enc.dtype))
     for i in (1, 2, 3):
         conv = [getattr(e, f"conv{i}") for e in encoders]
-        x = band_apply([getattr(e, f"bn{i}") for e in encoders], band_conv(conv, x)).map(F.relu)
+        x = band_apply([getattr(e, f"bn{i}") for e in encoders], band_conv(conv, x), act="relu")
     x = band_max_pool(x, kernel_size=3, stride=2, padding=1)
     features = []
     for stage in ("layer1", "layer2", "layer3", "layer4"):

@@ -2,7 +2,9 @@
 
 Inference: ``(x - running_mean) / sqrt(running_var + eps) * weight + bias``,
 folded into one affine computed in the accumulation dtype and cast back to
-``x.dtype`` (``F.batch_norm``'s semantics).
+``x.dtype`` (``F.batch_norm``'s semantics). ``batch_norm_inference`` is the
+plain version of the BN kernel (``ops/kernels/bn_act.py``), which eval-mode
+``models.layers.BatchNorm2d`` calls.
 
 Training (``batch_norm_train``) keeps the reference's quirks exactly, which
 ``F.batch_norm`` in training mode does not:

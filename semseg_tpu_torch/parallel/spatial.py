@@ -272,19 +272,19 @@ def band_max_pool(x: Bands, kernel_size: int, stride: int, padding: int) -> Band
     return Bands(parts, x.plan, out_stride)
 
 
-def band_apply(mods: Sequence[nn.Module], x: Bands) -> Bands:
+def band_apply(mods: Sequence[nn.Module], x: Bands, **kw) -> Bands:
     """A ``ROWWISE`` module (``models/layers.py``: batch norm, dropout, an
     activation) over a banded map: the one module of ``[module]`` over
     every band through its ``forward_bands`` (in training, over the whole
     map), or each band's copy (``mods[j]``, on band j's device) on its
-    band, in eval."""
+    band, in eval. ``kw`` goes to each call (a batch norm's ``act``)."""
     if len(mods) == 1:
-        return Bands(mods[0].forward_bands(x.parts), x.plan, x.stride)
+        return Bands(mods[0].forward_bands(x.parts, **kw), x.plan, x.stride)
     for o in mods:
         if o.training:
             raise RuntimeError(f"banded {type(o).__name__} copies run in eval mode only; a "
                                "training forward passes its one module for every band")
-    return Bands([o(p) for o, p in zip(mods, x.parts)], x.plan, x.stride)
+    return Bands([o(p, **kw) for o, p in zip(mods, x.parts)], x.plan, x.stride)
 
 
 def run_banded(mods: Sequence[nn.Module], x: Bands) -> Bands:

@@ -3,8 +3,8 @@
 
 ``export_bundle`` writes one ``torch.export`` program per (batch, H, W)
 bucket and the parameters once (``params.pt``). ``Predictor`` runs a bundle
-with no model zoo on the serving host: it imports the pool's registered
-operators (``ops.kernels.ppm_pool``) and nothing of
+with no model zoo on the serving host: it imports the registered operators
+(``ops.kernels.ppm_pool``, ``ops.kernels.bn_act``) and nothing of
 ``semseg_tpu_torch.models``.
 
 Program semantics per bucket (the single-scale reference protocol,
@@ -13,8 +13,11 @@ Program semantics per bucket (the single-scale reference protocol,
   resize of the logits to the input resolution (align_corners=False) →
   argmax → uint8 label map.
 ``argmax(softmax(x)) == argmax(x)``, so the softmax is left out. The PPM
-pool stays one ``semseg_tpu_torch::pyramid_pool`` node of the program, so
-on the card the program launches the hand-written kernel.
+pool stays one ``semseg_tpu_torch::pyramid_pool`` node of the program and
+each batch norm, with the add and activation after it, one
+``semseg_tpu_torch::bn_act`` node, so on the card the program launches the
+hand-written kernels. A bundle exported before the BN operator existed
+holds the plain ops and runs them.
 
 Each program takes the parameters as inputs, in the manifest's order: the
 model is traced from a ``meta`` copy with the parameters swapped in
@@ -46,8 +49,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-# Registers the pool's operators, which the programs call.
-from semseg_tpu_torch.ops.kernels import ppm_pool  # noqa: F401
+# Registers the operators the programs call.
+from semseg_tpu_torch.ops.kernels import bn_act, ppm_pool  # noqa: F401
 from semseg_tpu_torch.ops.preproc import normalize_255
 from semseg_tpu_torch.ops.resize import resize_bilinear
 
@@ -134,7 +137,7 @@ def export_bundle(
 
 class Predictor:
     """Runs an exported bundle on ``device``: needs only torch, numpy, PIL
-    and the pool's operators.
+    and the registered operators (the pool's and BN's).
 
     The parameters go to the device once, at load time, and stay there.
     A bundle exported on another device type raises; one exported on
